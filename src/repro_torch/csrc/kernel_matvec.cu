@@ -1,0 +1,196 @@
+// out = K(A, B) @ V without forming K: A (m, d), B (n, d), V (n, t) -> (m, t) f32.
+//
+// Replaces the TPU kernel src/repro/kernels/kernel_matvec.py:kernel_matvec_pallas
+// (body _matvec_body), ASkotch's O(n b d) hot spot.  The TPU walked B and V
+// along a sequential grid axis with the accumulator resident in VMEM; here
+// that axis becomes a loop inside each block, since blocks run in parallel
+// and nothing carries from one block to the next.
+//
+// Bound on the H100: operations.  At the main path's shape (m = 50,000,
+// n = 10^6, d = 9, t = 1) the work is ~1.2e12 f32 operations plus 5e10 exp,
+// while the bytes (B is 36 MB) are negligible.  The design therefore keeps
+// every pair's work in registers and shared memory, and keeps the SMs from
+// waiting on device memory:
+//   * one block per 64-row tile of A (grid.y walks t in chunks of TC
+//     columns), A staged once; the block loops over all of B and V in
+//     64-row tiles, d walked in 32-wide slabs;
+//   * the next slab of B (and V) is loaded into registers while the current
+//     one is computed, then written to shared memory, feature-major, so
+//     each thread reads its 4 rows and 4 columns of a feature as two float4
+//     per 16 fused multiply-adds;
+//   * each thread owns a 4 x 4 register tile of the distance and, for its 4
+//     rows, TC output accumulators in registers;
+//   * slab and tile counters are carried, not divided (a 64-bit division
+//     per slab cost ~10% of the kernel), and the per-pair epilogue is kept
+//     short: the map's divisions are per-launch constants, exp is one
+//     ex2.approx, and for rbf the scale is folded into the norms so a pair
+//     costs one add, one fma, one min and the exponential;
+//   * the 16 threads sharing a row reduce their partial sums with a fixed
+//     butterfly of warp shuffles at the end: no atomics, so the result is
+//     the same from run to run.
+// The time is in issued instructions per pair, not in memory: PERF.md has
+// the measurements that led here.
+// Known limit: a small m (a few prediction queries) gives fewer blocks than
+// the 132 SMs; splitting n across blocks is later work.
+//
+// Precision: with bf16 operands the kernel value is rounded to bf16 before
+// its product with V (the TPU kernel's bf16 matmul operand); the product of
+// two bf16 values is exact in f32 and accumulates in f32.
+#include "kernel_common.cuh"
+
+using namespace pk;
+
+// V values of rows [j0, j0 + TN) x columns [c0, c0 + tc) of a row-major
+// (n, t) matrix, prefetched into registers, then written to Vs[c][row].
+template <typename T, int TC, int PV>
+__device__ __forceinline__ void fetch_v(float (&pv)[PV], const T* __restrict__ v, int64_t j0,
+                                        int64_t n, int t, int c0, int tc) {
+#pragma unroll
+  for (int r = 0; r < PV; ++r) {
+    const int idx = threadIdx.x + r * THREADS;
+    const int jj = idx % TN, c = idx / TN;
+    const int64_t g = j0 + jj;
+    pv[r] = (c < tc && g < n) ? to_f32(v[g * t + c0 + c]) : 0.0f;
+  }
+}
+
+template <int TC, int PV>
+__device__ __forceinline__ void commit_v(float (*Vs)[TN], const float (&pv)[PV]) {
+#pragma unroll
+  for (int r = 0; r < PV; ++r) {
+    const int idx = threadIdx.x + r * THREADS;
+    if (idx < TN * TC) Vs[idx / TN][idx % TN] = pv[r];
+  }
+}
+
+template <typename T, int KID, int TC>
+__global__ void __launch_bounds__(THREADS, TC == 1 ? 3 : 1)
+kernel_matvec_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ v,
+                     float* __restrict__ out, int64_t m, int64_t n, int d, int t, float sigma) {
+  constexpr int FAM = family_of(KID);
+  constexpr bool NORMS = needs_norms(FAM);
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int PV = (TN * TC + THREADS - 1) / THREADS;
+  __shared__ __align__(16) float As[DC][TM];
+  __shared__ __align__(16) float Bs[DC][TN];
+  __shared__ __align__(16) float Vs[TC][TN];
+  __shared__ __align__(16) float a2[TM];
+  __shared__ __align__(16) float b2[TN];
+  const int rg = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const int64_t r0 = (int64_t)blockIdx.x * TM;
+  const int c0 = blockIdx.y * TC;
+  const int tc = min(TC, t - c0);
+  const MapConst mc = map_const(sigma);
+  const int ns = (d + DC - 1) / DC;  // slabs per B tile
+  const bool a_once = ns == 1;       // the whole A tile fits one slab: stage it once
+
+  if (NORMS) a_sq_norms(a2, a, r0, m, d);
+  if (a_once) stage_a(As, a, r0, m, d, 0, d);
+
+  // the slab in flight: rows [f_j0, f_j0 + TN), features from f_slab * DC
+  float pb[PB], pv[PV];
+  int64_t f_j0 = 0;
+  int f_slab = 0;
+  auto fetch_next = [&]() {
+    const int k0 = f_slab * DC;
+    fetch_b(pb, b, f_j0, n, d, k0, min(DC, d - k0));
+    if (f_slab == 0) fetch_v<T, TC, PV>(pv, v, f_j0, n, t, c0, tc);
+    if (++f_slab == ns) {
+      f_slab = 0;
+      f_j0 += TN;
+    }
+  };
+  if (n > 0) fetch_next();
+
+  float o[RM][TC] = {};
+  for (int64_t j0 = 0; j0 < n; j0 += TN) {
+    float acc[RM][JN] = {};
+    for (int slab = 0; slab < ns; ++slab) {
+      const int k0 = slab * DC, kc = min(DC, d - k0);
+      __syncthreads();  // readers of the previous slab / tile are done
+      commit_b(Bs, pb, kc);
+      if (slab == 0) commit_v<TC, PV>(Vs, pv);
+      if (!a_once) stage_a(As, a, r0, m, d, k0, kc);
+      __syncthreads();
+      if (f_j0 < n) fetch_next();  // in flight during the arithmetic below
+      if (NORMS) b_sq_norms(b2, Bs, kc, slab == 0);
+      accumulate_slab<FAM>(acc, As, Bs, rg, lane, kc);
+    }
+    if (NORMS) __syncthreads();  // b2 complete
+
+    const int cols = n - j0 < TN ? (int)(n - j0) : TN;  // live columns of this tile
+    const float4 a24 = *reinterpret_cast<const float4*>(&a2[rg * RM]);
+    const float4 b24 = *reinterpret_cast<const float4*>(&b2[lane * JN]);
+    const float av[RM] = {a24.x, a24.y, a24.z, a24.w};
+    const float bv[JN] = {b24.x, b24.y, b24.z, b24.w};
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        float kv;
+        if (KID == K_RBF) {
+          // exp(-max(a2 + b2 - 2 acc, 0) / (2 sigma^2)) with the scale folded
+          // into the norms: one add, one fma, one min and the exponential
+          kv = ex2(fminf(fmaf(acc[i][j], -2.0f * mc.rbf_scale,
+                              mc.rbf_scale * av[i] + mc.rbf_scale * bv[j]), 0.0f));
+        } else {
+          kv = kernel_map<KID>(base_value<FAM>(acc[i][j], av[i], bv[j]), mc);
+        }
+        if (BF16) kv = __bfloat162float(__float2bfloat16(kv));
+        acc[i][j] = lane * JN + j < cols ? kv : 0.0f;
+      }
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const float4 v4 = *reinterpret_cast<const float4*>(&Vs[c][lane * JN]);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+        o[i][c] = fmaf(acc[i][3], v4.w, fmaf(acc[i][2], v4.z,
+                  fmaf(acc[i][1], v4.y, fmaf(acc[i][0], v4.x, o[i][c]))));
+    }
+  }
+
+  // The LANES threads of a row group are consecutive lanes of one warp.
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int c = 0; c < TC; ++c)
+#pragma unroll
+      for (int off = LANES / 2; off > 0; off >>= 1)
+        o[i][c] += __shfl_xor_sync(0xffffffffu, o[i][c], off);
+  if (lane == 0)
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int64_t row = r0 + rg * RM + i;
+      if (row < m)
+        for (int c = 0; c < tc; ++c) out[row * t + c0 + c] = o[i][c];
+    }
+}
+
+// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
+// bf16 != 0 reads A, B and V as __nv_bfloat16, else as float.  d, t >= 1.
+extern "C" int kernel_matvec_launch(const void* a, const void* b, const void* v, void* out,
+                                    long long m, long long n, int d, int t, float sigma,
+                                    int kernel_id, int bf16, void* stream) {
+  if (m < 0 || n < 0 || d < 1 || t < 1) return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  constexpr int TCW = 8;  // column chunk for t > 1
+  const int tcols = t == 1 ? 1 : TCW;
+  const int gy = (t + tcols - 1) / tcols;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((m + TM - 1) / TM), (unsigned)gy);
+  cudaStream_t s = (cudaStream_t)stream;
+#define PK_LAUNCH(T, KID)                                                                   \
+  if (t == 1)                                                                               \
+    kernel_matvec_kernel<T, KID, 1><<<grid, THREADS, 0, s>>>(                               \
+        (const T*)a, (const T*)b, (const T*)v, (float*)out, m, n, d, t, sigma);             \
+  else                                                                                      \
+    kernel_matvec_kernel<T, KID, TCW><<<grid, THREADS, 0, s>>>(                             \
+        (const T*)a, (const T*)b, (const T*)v, (float*)out, m, n, d, t, sigma)
+  if (bf16) {
+    PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, __nv_bfloat16)
+  } else {
+    PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, float)
+  }
+#undef PK_LAUNCH
+  return (int)cudaGetLastError();
+}

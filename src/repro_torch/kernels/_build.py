@@ -1,0 +1,104 @@
+"""Build the CUDA sources under ``repro_torch/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles, at first use, into its own shared library
+``build/lib<name>.so`` beside the package sources::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>.so csrc/<name>.cu
+
+The sources are the only input: a library is rebuilt whenever it is older
+than any file in ``csrc/``.  The C functions take plain pointers, sizes and
+a stream, so no PyTorch header is compiled and a build takes seconds.
+:func:`build` starts one ``nvcc`` per source at once, which is how
+``chip_smoke.py`` builds them all before timing anything.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "repro_torch are built from csrc/ on the machine with the card"
+    )
+
+
+def lib_path(name: str) -> pathlib.Path:
+    """Where the shared library built from ``csrc/<name>.cu`` lives."""
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    out = lib_path(name)
+    if not out.exists():
+        return True
+    newest_src = max(p.stat().st_mtime for p in CSRC.iterdir() if p.is_file())
+    return out.stat().st_mtime < newest_src
+
+
+def build(names: list[str] | tuple[str, ...], *, force: bool = False) -> dict[str, dict]:
+    """Compile every stale ``csrc/<name>.cu`` in parallel (one nvcc each).
+
+    Returns ``{name: {"seconds": float, "log": str}}`` for the sources it
+    compiled (``-Xptxas -v`` register / shared-memory / spill lines in
+    ``log``); an up-to-date library is skipped unless ``force``.  Raises
+    ``RuntimeError`` with the compiler's output when any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        if not (force or _stale(name)):
+            continue
+        tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, time.perf_counter())
+    report, failed = {}, []
+    for name, (proc, tmp, t0) in procs.items():
+        log, _ = proc.communicate()
+        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        if proc.returncode != 0:
+            failed.append(f"nvcc for {name}.cu failed ({proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib_path(name))  # atomic: readers never see a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of ``lib<name>.so``, building it first if stale."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(lib_path(name)))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,92 @@
+"""Wrapper of the CUDA kernel ``csrc/kernel_matvec.cu``: out = K(A, B) @ V.
+
+Replaces the TPU kernel ``src/repro/kernels/kernel_matvec.py:
+kernel_matvec_pallas``.  The kernel is bound by operations (O(m n d) f32
+FMAs plus one kernel-map evaluation per pair); its source note says how the
+design keeps every pair in registers and shared memory.  Its plain version
+is ``repro_torch.kernels.ref.kernel_matvec``.
+
+The library is built from the sources and loaded at the first call, never
+at import, so this module imports on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.kernels import KERNEL_NAMES
+from repro_torch.kernels import _build
+
+_SIGNATURE = (
+    [ctypes.c_void_p] * 4
+    + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+       ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+)
+
+
+def _fn():
+    lib = _build.load("kernel_matvec")
+    fn = lib.kernel_matvec_launch
+    fn.argtypes = _SIGNATURE
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_operands(*xs: torch.Tensor) -> None:
+    """Raise unless every operand is a CUDA tensor on one device, f32 or
+    bf16 (f64 and other types are refused)."""
+    dev = xs[0].device
+    for x in xs:
+        if x.device.type != "cuda" or x.device != dev:
+            raise ValueError(
+                f"CUDA kernel operands must share one CUDA device; got {x.device} and {dev}"
+            )
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"CUDA kernel operands must be float32 or bfloat16, got {x.dtype}")
+
+
+def kernel_matvec_cuda(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kernel: str,
+    sigma: float,
+    precision: str,
+) -> torch.Tensor:
+    """Launch the kernel on the current stream (no synchronisation).
+
+    a: (m, d), b: (n, d), v: (n,) | (n, t), CUDA, f32 or bf16 -> f32 (m,) | (m, t).
+    The operands are cast to the policy's type (bf16 for ``"bf16"``, f32
+    otherwise) and made contiguous before the launch.
+    """
+    check_operands(a, b, v)
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1] or a.shape[1] < 1:
+        raise ValueError(f"expected a (m, d), b (n, d) with d >= 1; got {tuple(a.shape)}, {tuple(b.shape)}")
+    if v.ndim not in (1, 2) or v.shape[0] != b.shape[0] or (v.ndim == 2 and v.shape[1] < 1):
+        raise ValueError(f"expected v (n,) or (n, t) with n = {b.shape[0]}; got {tuple(v.shape)}")
+    dt = torch.bfloat16 if precision == "bf16" else torch.float32
+    a, b, v = (x.to(dt).contiguous() for x in (a, b, v))
+    m, d = a.shape
+    n = b.shape[0]
+    t = 1 if v.ndim == 1 else v.shape[1]
+    out = torch.empty((m,) if v.ndim == 1 else (m, t), dtype=torch.float32, device=a.device)
+    if m == 0:  # nothing to launch
+        return out
+    with torch.cuda.device(a.device):  # the launch goes to the runtime's current device
+        err = _fn()(
+            a.data_ptr(), b.data_ptr(), v.data_ptr(), out.data_ptr(), m, n, d, t,
+            float(sigma), KERNEL_NAMES.index(kernel), int(dt == torch.bfloat16),
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"kernel_matvec launch failed: CUDA error {err}")
+    kernel_matvec_cuda.launches += 1
+    return out
+
+
+#: launches since the last reset (``chip_smoke.py`` sets it to 0 before the
+#: main path and reads it after)
+kernel_matvec_cuda.launches = 0

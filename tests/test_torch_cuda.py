@@ -1,0 +1,111 @@
+"""Card-only tests of the port: the hand-written CUDA kernels against their
+plain PyTorch versions, and one ASkotch step on the card against the same
+step on the CPU.
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Without a card every test skips (decided in the ``cuda_device`` fixture).
+Kernel tolerances are those of tests/test_kernels_pallas.py: f32 rtol 2e-4 /
+atol 2e-5 scaled by max(1, |ref|max) (summation order differs), bf16
+(0.05, 0.02) (one bf16 ulp of a kernel value can differ where the f32
+distances round differently).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import askotch  # noqa: E402
+from repro_torch.core.kernels import KERNEL_NAMES  # noqa: E402
+from repro_torch.core.krr import KRRProblem  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.kernel_block import kernel_block_cuda  # noqa: E402
+from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda  # noqa: E402
+
+F32_TOL = (2e-4, 2e-5)
+BF16_TOL = (0.05, 0.02)
+
+
+def _tol(ref, rtol, atol):
+    return dict(rtol=rtol, atol=atol * max(1.0, float(np.abs(ref).max())))
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels are built with nvcc there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kern", KERNEL_NAMES)
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_kernels_match_plain(cuda_device, rng, kern, precision):
+    a = _t(rng.standard_normal((130, 37)).astype(np.float32) / 6).to(cuda_device)
+    b = _t(rng.standard_normal((301, 37)).astype(np.float32) / 6).to(cuda_device)
+    v = _t(rng.standard_normal((301, 5)).astype(np.float32)).to(cuda_device)
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    before = kernel_matvec_cuda.launches, kernel_block_cuda.launches
+    got = ops.kernel_matvec(a, b, v, kernel=kern, sigma=1.4, precision=precision)
+    blk = ops.kernel_block(a, b, kernel=kern, sigma=1.4, precision=precision)
+    torch.cuda.synchronize()
+    want = ops.ref.kernel_matvec(a, b, v, 1.4, kernel=kern, precision=precision).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+    want = ops.ref.kernel_block(a, b, 1.4, kernel=kern, precision=precision).cpu().numpy()
+    np.testing.assert_allclose(blk.cpu().numpy(), want, **_tol(want, *tol))
+    assert (kernel_matvec_cuda.launches, kernel_block_cuda.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_f64(cuda_device):
+    a = torch.zeros((4, 3), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.kernel_matvec(a, a, a[:, 0])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.kernel_block(a, a)
+
+
+@pytest.mark.cuda
+def test_cuda_empty_outputs_launch_nothing(cuda_device):
+    a = torch.zeros((0, 3), device=cuda_device)
+    b = torch.ones((5, 3), device=cuda_device)
+    before = kernel_matvec_cuda.launches, kernel_block_cuda.launches
+    assert ops.kernel_matvec(a, b, b[:, 0]).shape == (0,)
+    assert ops.kernel_block(a, b).shape == (0, 5)
+    assert ops.kernel_block(b, a).shape == (5, 0)
+    assert (kernel_matvec_cuda.launches, kernel_block_cuda.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 3])
+def test_cuda_step_matches_cpu_step(cuda_device, rng, t):
+    """One ASkotch step with the same injected draws on the card (the CUDA
+    kernels, cuBLAS / cuSOLVER) and on the CPU (the plain versions, LAPACK):
+    w, v, z and step_L agree to rtol 1e-3 (atol 1e-4 x magnitude); the
+    kernels' sums run in another order and the factorizations differ."""
+    n, d, b, r = 2000, 6, 256, 32
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = rng.standard_normal((n,) if t == 1 else (n, t)).astype(np.float32)
+    idx = rng.permutation(n)[:b]
+    omega = rng.standard_normal((b, r)).astype(np.float32)
+    probe = rng.standard_normal((b, 1)).astype(np.float32)
+    cfg = askotch.ASkotchConfig(block_size=b, rank=r)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        prob = KRRProblem(x=_t(x).to(dev), y=_t(y).to(dev), lam_unscaled=1e-4)
+        step = askotch.make_step(prob, cfg)
+        state, aux = step(askotch.init_state(prob, seed=0), idx=_t(idx).to(dev),
+                          omega=_t(omega).to(dev), probe=_t(probe).to(dev))
+        out[str(dev)] = [s.cpu().numpy() for s in (state.w, state.v, state.z, aux.step_l)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(got, want, **_tol(want, 1e-3, 1e-4))
