@@ -8,14 +8,23 @@ Phases, each printing its own JSON line; any failure exits non-zero:
   1. card    — ``nvidia-smi`` name and power limit, torch / CUDA versions,
                TF32 off for every f32 matmul, and a sha256 of the sources
                this run used (``tree_digest``).
-  2. build   — compile every CUDA kernel of the main path from
+  2. build   — compile every CUDA kernel of the port from
                ``src/repro_torch/csrc`` (one nvcc per source, in parallel,
                always, so each run prints its ``-Xptxas -v`` lines).
-  3. check   — each kernel against its plain PyTorch version on the card:
-               7 kernels x {f32, bf16} x {1-D v, t = 8} x d in {9, 37} at
-               m = 1000, n = 3001.  Tolerances as the JAX package's kernel
-               tests: f32 rtol 2e-4 / atol 2e-5 x max(1, |ref|max); bf16
-               rtol 0.05 / atol 0.02 x max(1, |ref|max).
+  3. check   — kernel_matvec and kernel_block against their plain PyTorch
+               versions on the card: 7 kernels x {f32, bf16} x {1-D v,
+               t = 8} x d in {9, 37} at m = 1000, n = 3001.  Tolerances as
+               the JAX package's kernel tests: f32 rtol 2e-4 / atol 2e-5 x
+               max(1, |ref|max); bf16 rtol 0.05 / atol 0.02 x max(1, |ref|max).
+  3b. check_multi — the three multi-kernel kernels against their plain
+               versions, same tolerances and shapes: the combinations
+               (rbf, laplacian, matern52) (l2 + l1 families), (linear,
+               polynomial, sigmoid, cosine) (dot + cos), (rbf, rbf) with
+               sigmas (0.5, 2.0), and 9 kernels (above the per-launch cap:
+               the wrapper splits them) x {f32, bf16} x d in {9, 37}; the
+               weighted matvec with (q,) weights on a 1-D v and on t = 8
+               and with per-column (q, 8) weights, the stacked matvec on a
+               1-D v and on t = 8, and the weighted block.
   4. solve   — the main path through ``solver_api.solve("askotch")`` at the
                paper's taxi configuration (d = 9, rbf, sigma = 1,
                lam_unscaled = 2e-7, b = 50,000, r = 100, f32), with n cut
@@ -25,13 +34,36 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                shapes on the path, the prediction (10^4 x 10^6) and the
                residual pass (10^6 x 10^6), are held against the plain
                version in full.
-  5. time    — each kernel at the main path's shapes (CUDA events, median
+  5. tune    — the multi-kernel path's search: ``tune_multikernel`` on the
+               first 20,000 rows of the same taxi data, kernels (rbf,
+               laplacian, matern52) (benchmarks/bench_multikernel.py), 8
+               Dirichlet weight samples x 4 lams around 2e-7 x 5 folds
+               (160 columns of one stacked blocked CG), sigma 1, rank 100,
+               200 iterations at most, tol 1e-5; n cut from 10^8 to 2 x 10^4
+               because every CG iteration is a 160-column sweep.  One
+               ``matvec_cols`` (20,000^2 x 160) and one ``sketch_components``
+               (20,000^2 x 100) are held against their plain versions.
+  6. refit   — the tuned combination refit by ``solve("askotch")`` on the
+               10^6-row problem of phase 4 (b = 50,000, r = 100, 20
+               iterations); G_B (50,000 x 10^6), K_BB (50,000^2), the
+               prediction (10^4 x 10^6) and the residual pass's K_w w
+               (10^6 x 10^6) are held against their plain versions in full;
+               the final residual must be finite and below 1.
+  7. time    — each kernel at the main path's shapes (CUDA events, median
                of 5 after warm-up) beside its plain version and its bound,
                with the kernel's result held against the plain one there;
-               also kernel_matvec for 64 queries (the small-m case).
-  6. launch  — ``python -m repro_torch.launch.krr_solve --method askotch
-               --iters 50`` on cuda; its JSON keys must be the JAX
-               launcher's.
+               also kernel_matvec for 64 queries (the small-m case), and
+               the multi-kernel kernels at the tune's, the refit's and the
+               prediction's shapes.  The kernels line has one row per
+               (kernel, path shape), each with the launches of that path.
+  8. launch  — ``python -m repro_torch.launch.krr_solve --method askotch
+               --iters 50`` and ``python -m repro_torch.launch.krr_tune
+               --kernels rbf,laplacian,matern52 --n 4000`` on cuda; their
+               JSON keys must be the JAX launchers'.
+
+Each of the paths in phases 4-6 sets every launch count to 0 just before
+it runs and reads the counts just after; a kernel of the path that was
+never launched fails the run.
 
 It imports nothing of JAX or of the JAX package.  Full build logs go to
 ``chiprun_out/chip_smoke_build.log``.
@@ -65,6 +97,13 @@ BLOCK, RANK, SIGMA, LAM_UNSCALED = 50_000, 100, 1.0, 2e-7
 MAX_ITERS = 20
 SMALL_M = 64  # a few prediction queries: fewer row tiles than SMs
 
+# the multi-kernel tune (benchmarks/bench_multikernel.py:22-23 kernels and
+# M / L / K), n cut; its C = M * L * K columns ride one stacked CG
+MK_KERNELS = ("rbf", "laplacian", "matern52")
+N_TUNE, M_WEIGHTS, K_FOLDS = 20_000, 8, 5
+TUNE_LAMS = (5e-8, 2e-7, 8e-7, 3.2e-6)
+TUNE_ITERS, TUNE_TOL = 200, 1e-5
+
 # keys of the JSON line printed by ``python -m repro.launch.krr_solve`` for
 # a single-head askotch solve (src/repro/launch/krr_solve.py:151-159)
 LAUNCHER_KEYS = [
@@ -72,7 +111,24 @@ LAUNCHER_KEYS = [
     "n", "rel_residual", "test_rmse", "test_mae", "test_acc", "seconds",
 ]
 
+# keys of the JSON line printed by ``python -m repro.launch.krr_tune
+# --kernels ...`` with a refit that warm-starts (src/repro/launch/krr_tune.py:180-230)
+TUNE_LAUNCHER_KEYS = [
+    "best", "strategy", "search", "policy", "candidates", "folds", "kernel_sweeps",
+    "naive_sweep_estimate", "records", "trace", "weight_samples", "refit_warm_start",
+    "refit", "seconds",
+]
+
 TOL = {"f32": (2e-4, 2e-5), "bf16": (0.05, 0.02)}
+
+# f32 operations per pair of each base-tile family at feature width d (l2:
+# d products and sums, two adds, the clamp; l1: subtract, abs, add per
+# feature; cos: the dot product and its division by the norms) and of each
+# kernel map on that tile
+FAMILY_OPS = {"l2": lambda d: 2 * d + 3, "l1": lambda d: 3 * d, "dot": lambda d: 2 * d,
+              "cos": lambda d: 2 * d + 3}
+MAP_OPS = {"rbf": 2, "laplacian": 2, "matern52": 8, "linear": 1, "polynomial": 4,
+           "sigmoid": 3, "cosine": 0}
 
 
 def rbf_ops_per_pair(d: int, t: int) -> int:
@@ -80,6 +136,21 @@ def rbf_ops_per_pair(d: int, t: int) -> int:
     the squared distance ||a||^2 + ||b||^2 - 2 a.b (2d + 3: d products and
     sums, two adds, the clamp), the map (scale, exp), then 2 per value column."""
     return 2 * d + 3 + 2 + 2 * t
+
+
+def multi_ops_per_pair(kernels, d: int, t: int, kind: str) -> int:
+    """f32 operations per pair of a multi-kernel op: one base tile per
+    family present, every kernel's map, then the products — ``"matvec"``
+    with (q,) weights: combine the q values (2 each) and 2 per column;
+    ``"cols"`` (per-column weights) and ``"components"``: 2 per kernel and
+    column; ``"block"``: the weighted sum (2 per kernel)."""
+    from repro_torch.core.kernels import kernel_family
+
+    q = len(kernels)
+    ops = sum(FAMILY_OPS[f](d) for f in dict.fromkeys(kernel_family(k) for k in kernels))
+    ops += sum(MAP_OPS[k] for k in kernels)
+    return ops + {"matvec": 2 * q + 2 * t, "cols": 2 * q * t, "components": 2 * q * t,
+                  "block": 2 * q}[kind]
 
 
 def emit(obj) -> None:
@@ -137,16 +208,19 @@ def _ptxas_summary(log: str) -> dict:
             "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld}
 
 
+LIBS = ("kernel_matvec", "kernel_block", "kernel_multi")
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    report = _build.build(["kernel_matvec", "kernel_block"], force=True)
+    report = _build.build(LIBS, force=True)
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_build.log", "w") as fh:
         for name, rec in report.items():
             fh.write(f"== {name} ({rec['seconds']:.1f} s)\n{rec['log']}\n")
-    for name in ("kernel_matvec", "kernel_block"):
+    for name in LIBS:
         if not _build.lib_path(name).exists():
             fail(f"lib{name}.so was not built")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -211,16 +285,115 @@ def phase_check() -> dict:
     return worst
 
 
+#: the combinations check_multi holds against the plain versions: l2 + l1
+#: families, dot + cos, one kernel twice with its own sigmas, and 9 kernels
+#: (above the per-launch cap of 8, and of 4 for the stacked matvec)
+MULTI_CASES = [
+    (("rbf", "laplacian", "matern52"), (1.5, 0.8, 2.2)),
+    (("linear", "polynomial", "sigmoid", "cosine"), (1.5, 1.1, 2.0, 1.0)),
+    (("rbf", "rbf"), (0.5, 2.0)),
+    (("rbf", "laplacian", "matern52", "linear", "polynomial", "sigmoid", "cosine",
+      "rbf", "laplacian"), (1.5, 0.8, 2.2, 1.5, 1.1, 2.0, 1.0, 0.6, 3.0)),
+]
+
+
+def phase_check_multi() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.multi import (
+        kernel_block_multi_cuda,
+        kernel_matvec_components_cuda,
+        kernel_matvec_multi_cuda,
+    )
+
+    m, n, t = 1000, 3001, 8
+    worst = {"kernel_matvec_multi": 0.0, "kernel_matvec_components": 0.0,
+             "kernel_block_multi": 0.0}
+    gen = torch.Generator().manual_seed(2)
+    rng = np.random.default_rng(2)
+    n_checks = 0
+
+    def check(name, got, want, prec, **case):
+        nonlocal n_checks
+        torch.cuda.synchronize()
+        err, ok = _err(got, want, prec)
+        emit({"check": name, "precision": prec, **case, "max_abs_err": err, "ok": ok})
+        if not ok:
+            fail(f"{name} {prec} {case}: err {err}")
+        worst[name] = max(worst[name], err)
+        n_checks += 1
+
+    for d in (9, 37):
+        a = (torch.randn((m, d), generator=gen) / math.sqrt(d)).cuda()
+        b = (torch.randn((n, d), generator=gen) / math.sqrt(d)).cuda()
+        a[3] = 0.0  # a zero row: cosine's zero-norm-as-1 rule
+        v1 = torch.randn((n,), generator=gen).cuda()
+        vt = torch.randn((n, t), generator=gen).cuda()
+        for kernels, sigmas in MULTI_CASES:
+            q = len(kernels)
+            w = tuple(float(x) for x in rng.dirichlet(np.ones(q)))
+            w_t = torch.tensor(w, device="cuda")
+            w_cols = torch.from_numpy(rng.dirichlet(np.ones(q), size=t).T.astype(np.float32)).cuda()
+            case = {"kernels": list(kernels), "d": d}
+            for prec in ("f32", "bf16"):
+                for v, wts, label in ((v1, w, "w(q,) v(n,)"), (vt, w, "w(q,) v(n,8)"),
+                                      (vt, w_cols, "w(q,8) v(n,8)")):
+                    want = ref.kernel_matvec_multi(a, b, v, sigmas, w_cols if wts is w_cols else w_t,
+                                                   kernels=kernels, precision=prec)
+                    got = kernel_matvec_multi_cuda(a, b, v, wts, kernels=kernels, sigmas=sigmas,
+                                                   precision=prec)
+                    check("kernel_matvec_multi", got, want, prec, **case, operands=label)
+                for v, label in ((v1, "v(n,)"), (vt, "v(n,8)")):
+                    want = ref.kernel_matvec_components(a, b, v, sigmas, kernels=kernels,
+                                                        precision=prec)
+                    got = kernel_matvec_components_cuda(a, b, v, kernels=kernels, sigmas=sigmas,
+                                                        precision=prec)
+                    check("kernel_matvec_components", got, want, prec, **case, operands=label)
+                want = ref.kernel_block_multi(a, b, sigmas, w, kernels=kernels, precision=prec)
+                got = kernel_block_multi_cuda(a, b, kernels=kernels, sigmas=sigmas, weights=w,
+                                              precision=prec)
+                check("kernel_block_multi", got, want, prec, **case)
+    emit({"phase": "check_multi", "m": m, "n": n, "t": t, "checks": n_checks,
+          "worst_abs_err": worst})
+    return worst
+
+
+_TAXI = {}
+
+
+def taxi_data():
+    """The taxi configuration's rows on the card, made once: (x, y) of
+    ``taxi_like(0, N_TRAIN + N_TEST, D)``."""
+    from repro_torch.data import synthetic
+
+    if not _TAXI:
+        _TAXI["xy"] = synthetic.taxi_like(0, N_TRAIN + N_TEST, D, device="cuda")
+    return _TAXI["xy"]
+
+
+def _path_launches(launches: dict, names: tuple[str, ...], path: str) -> None:
+    """Fail unless every kernel of ``names`` launched in the path's run."""
+    if min(launches[k] for k in names) <= 0:
+        fail(f"a kernel of the {path} path was never launched: {launches}")
+
+
+def _on_card(path: str, **tensors) -> None:
+    off_card = [k for k, v in tensors.items() if v.device.type != "cuda"]
+    if off_card:
+        fail(f"{path}: tensors off the card: {off_card}")
+
+
 def phase_solve() -> dict:
     import torch
 
     from repro_torch.core.krr import KRRProblem, evaluate
     from repro_torch.core.solver_api import solve
-    from repro_torch.data import synthetic
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda
 
-    x, y = synthetic.taxi_like(0, N_TRAIN + N_TEST, D, device="cuda")
+    x, y = taxi_data()
     problem = KRRProblem(x=x[:N_TRAIN], y=y[:N_TRAIN], kernel="rbf", sigma=SIGMA,
                          lam_unscaled=LAM_UNSCALED, precision="f32")
     x_te, y_te = x[N_TRAIN:], y[N_TRAIN:]
@@ -258,8 +431,6 @@ def phase_solve() -> dict:
 
     rel = out.history[-1]["rel_residual"]
     rmse = float(evaluate(pred, y_te).rmse)
-    tensors = {"x": problem.x, "y": problem.y, "w": out.w, "pred": pred}
-    off_card = [k for k, v in tensors.items() if v.device.type != "cuda"]
     rec = {"phase": "solve", "n": N_TRAIN, "n_test": N_TEST, "d": D, "block_size": BLOCK,
            "rank": RANK, "iters": out.info["iters"], "rel_residual": rel,
            "rel_residual_start": 1.0, "test_rmse": rmse,
@@ -272,10 +443,8 @@ def phase_solve() -> dict:
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "reduced": "n 1e8 -> 1e6 (+1e4 test): O(n^2 d) residual, one-card time limit"}
     emit(rec)
-    if off_card:
-        fail(f"tensors off the card: {off_card}")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was never launched: {launches}")
+    _on_card("solve", x=problem.x, y=problem.y, w=out.w, pred=pred)
+    _path_launches(launches, ("kernel_matvec", "kernel_block"), "solve")
     if not (math.isfinite(rel) and rel < 1.0):
         fail(f"final rel_residual {rel} is not finite and below its start of 1.0")
     if not (math.isfinite(rmse) and pred.shape == (N_TEST,)):
@@ -284,6 +453,147 @@ def phase_solve() -> dict:
         fail(f"kernel_matvec's prediction disagrees with its plain version: err {pred_err}")
     if not kw_ok:
         fail(f"kernel_matvec's residual pass disagrees with its plain version: err {kw_err}")
+    return rec
+
+
+def _tune_weight_cols(result) -> "np.ndarray":
+    """The (q, C) per-column weights of the tune's stacked solve: each
+    weight sample's row repeated over its lams x folds columns."""
+    import numpy as np
+
+    w_mat = np.asarray([r["weights"] for r in result.records[::len(TUNE_LAMS)]], np.float32)
+    return np.repeat(w_mat.T, len(TUNE_LAMS) * K_FOLDS, axis=1)
+
+
+def phase_tune() -> tuple[dict, object]:
+    import torch
+
+    from repro_torch.core.krr import KRRProblem
+    from repro_torch.core.tune import tune_multikernel
+    from repro_torch.kernels import ops, ref
+
+    x, y = taxi_data()
+    problem = KRRProblem(x=x[:N_TUNE], y=y[:N_TUNE], kernel=MK_KERNELS, precision="f32")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    result = tune_multikernel(
+        problem, kernels=MK_KERNELS, sigmas=(SIGMA,), lams=TUNE_LAMS, folds=K_FOLDS,
+        n_weight_samples=M_WEIGHTS, rank=RANK, max_iters=TUNE_ITERS, tol=TUNE_TOL, seed=0,
+    )
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launches()
+
+    # the two kernel calls of the tune, each held against its plain version
+    # at the tune's shapes: one CG step's matvec_cols and the sketch
+    op = problem.op
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cols = len(TUNE_LAMS) * K_FOLDS * M_WEIGHTS
+    v = torch.randn((N_TUNE, cols), generator=gen, device="cuda")
+    wc = torch.from_numpy(_tune_weight_cols(result)).cuda()
+    mv_err, mv_ok = _err(op.matvec_cols(v, wc),
+                         ref.kernel_matvec_multi(op.x, op.x, v, op.sigmas, wc, kernels=op.kernels),
+                         "f32")
+    omega, _ = torch.linalg.qr(torch.randn((N_TUNE, RANK), generator=gen, device="cuda"))
+    sk_err, sk_ok = _err(op.sketch_components(omega),
+                         ref.kernel_matvec_components(op.x, op.x, omega, op.sigmas,
+                                                      kernels=op.kernels), "f32")
+    rec = {"phase": "tune", "n": N_TUNE, "d": D, "kernels": list(MK_KERNELS), "sigmas": [SIGMA],
+           "lams": list(TUNE_LAMS), "folds": K_FOLDS, "weight_samples": M_WEIGHTS,
+           "columns": cols, "rank": RANK, "max_iters": TUNE_ITERS, "tol": TUNE_TOL,
+           "best": result.best, "sweeps": result.sweeps,
+           "iters_by_sigma": result.info["iters_by_sigma"], "seconds": seconds,
+           "launches": launches, "matvec_cols_max_abs_err": mv_err, "matvec_cols_ok": mv_ok,
+           "sketch_components_max_abs_err": sk_err, "sketch_components_ok": sk_ok,
+           "reduced": "n 1e8 -> 2e4: 160 columns per CG iteration, one-card time limit"}
+    emit(rec)
+    _on_card("tune", x=problem.x, y=problem.y)
+    _path_launches(launches, ("kernel_matvec_multi", "kernel_matvec_components"), "tune")
+    if not math.isfinite(result.best["cv_mse"]):
+        fail(f"tune: best cv_mse {result.best['cv_mse']} is not finite")
+    if not mv_ok:
+        fail(f"matvec_cols disagrees with its plain version: err {mv_err}")
+    if not sk_ok:
+        fail(f"sketch_components disagrees with its plain version: err {sk_err}")
+    return rec, result
+
+
+def phase_refit(best: dict) -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.krr import KRRProblem, evaluate
+    from repro_torch.core.solver_api import solve
+    from repro_torch.kernels import ops, ref
+
+    x, y = taxi_data()
+    kernels, weights = tuple(best["kernel"]), tuple(best["weights"])
+    problem = KRRProblem(x=x[:N_TRAIN], y=y[:N_TRAIN], sigma=best["sigma"],
+                         lam_unscaled=best["lam_unscaled"], precision="f32")
+    x_te, y_te = x[N_TRAIN:], y[N_TRAIN:]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = solve(problem, "askotch", kernel=kernels, weights=weights, block_size=BLOCK,
+                rank=RANK, max_iters=MAX_ITERS, eval_every=MAX_ITERS)
+    pred = out.predict_fn(x_te)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+
+    # the path's three shapes, each against the plain version: G_B for a
+    # block of the rows with the solution as right-hand side, K_BB of that
+    # block, and the prediction
+    op = dataclasses.replace(problem, kernel=kernels, weights=weights).op
+    w_t = torch.tensor(op.weights, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    xb = op.x.index_select(0, torch.randperm(N_TRAIN, generator=gen, device="cuda")[:BLOCK])
+    gb_err, gb_ok = _err(op.row_block_matvec(xb, out.w),
+                         ref.kernel_matvec_multi(xb, op.x, out.w, op.sigmas, w_t,
+                                                 kernels=op.kernels), "f32")
+    kbb_err, kbb_ok = _err(op.block(xb),
+                           ref.kernel_block_multi(xb, xb, op.sigmas, op.weights,
+                                                  kernels=op.kernels), "f32")
+    torch.cuda.empty_cache()
+    pred_err, pred_ok = _err(pred, ref.kernel_matvec_multi(x_te, op.x, out.w, op.sigmas, w_t,
+                                                           kernels=op.kernels), "f32")
+    # the residual pass's K_w w (15,625 row tiles), relaunched on the same
+    # inputs (the kernel is deterministic)
+    t1 = time.perf_counter()
+    kw = op.matvec(out.w)
+    torch.cuda.synchronize()
+    residual_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    kw_want = ref.kernel_matvec_multi(op.x, op.x, out.w, op.sigmas, w_t, kernels=op.kernels)
+    torch.cuda.synchronize()
+    residual_plain_s = time.perf_counter() - t2
+    kw_err, kw_ok = _err(kw, kw_want, "f32")
+    del kw, kw_want
+    rel = out.history[-1]["rel_residual"]
+    rmse = float(evaluate(pred, y_te).rmse)
+    rec = {"phase": "refit", "n": N_TRAIN, "n_test": N_TEST, "kernels": list(kernels),
+           "weights": list(weights), "sigma": best["sigma"], "lam_unscaled": best["lam_unscaled"],
+           "block_size": BLOCK, "rank": RANK, "iters": out.info["iters"], "rel_residual": rel,
+           "test_rmse": rmse, "solve_s": out.info["wall_time_s"], "wall_s_with_predict": wall,
+           "launches": launches, "gb_max_abs_err": gb_err, "gb_ok": gb_ok,
+           "kbb_max_abs_err": kbb_err, "kbb_ok": kbb_ok,
+           "predict_max_abs_err": pred_err, "predict_ok": pred_ok,
+           "residual_kw_max_abs_err": kw_err, "residual_kw_ok": kw_ok,
+           "residual_s": residual_s, "residual_plain_s": residual_plain_s,
+           "reduced": "n 1e8 -> 1e6 (+1e4 test): O(n^2 d) residual, one-card time limit"}
+    emit(rec)
+    _on_card("refit", x=op.x, w=out.w, pred=pred)
+    _path_launches(launches, ("kernel_matvec_multi", "kernel_block_multi"), "refit")
+    if not (math.isfinite(rel) and rel < 1.0):
+        fail(f"refit: final rel_residual {rel} is not finite and below its start of 1.0")
+    if not (math.isfinite(rmse) and pred.shape == (N_TEST,)):
+        fail(f"refit: prediction not finite / wrong shape: rmse {rmse}, shape {tuple(pred.shape)}")
+    for name, ok, err in (("G_B", gb_ok, gb_err), ("K_BB", kbb_ok, kbb_err),
+                          ("prediction", pred_ok, pred_err), ("residual pass", kw_ok, kw_err)):
+        if not ok:
+            fail(f"refit: {name} disagrees with its plain version: err {err}")
     return rec
 
 
@@ -303,19 +613,34 @@ def _time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _bound_of(flops: float, nbytes: float) -> dict:
+    """Least time for the work: the larger of its operations at the f32
+    peak and its bytes (inputs read once, output written once) at the
+    memory peak."""
+    t_ops, t_bytes = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
 def _bound(m: int, n: int, d: int, t: int | None) -> dict:
-    """Least time for the rbf work on (m, d) x (n, d) rows: the larger of its
-    operations at the f32 peak and its bytes (inputs read once, output
-    written once) at the memory peak; ``t`` None is the block."""
+    """Bound of the rbf work on (m, d) x (n, d) rows; ``t`` None is the block."""
     flops = m * n * rbf_ops_per_pair(d, t or 0)
     if t:  # matvec: read A, B, V once, write out once
         nbytes = 4 * (m * d + n * d + n * t + m * t)
     else:  # block: read A, B once, write K once
         nbytes = 4 * (m * d + n * d + m * n)
-    t_ops, t_bytes = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+    return _bound_of(flops, nbytes)
+
+
+def _bound_multi(m: int, n: int, d: int, t: int, kernels, kind: str) -> dict:
+    """Bound of a multi-kernel op (``kind`` as in :func:`multi_ops_per_pair`)."""
+    q = len(kernels)
+    flops = m * n * multi_ops_per_pair(kernels, d, t, kind)
+    nbytes = 4 * (m * d + n * d)
+    nbytes += {"matvec": 4 * (n * t + m * t), "cols": 4 * (n * t + q * t + m * t),
+               "components": 4 * (n * t + q * m * t), "block": 4 * m * n}[kind]
+    return _bound_of(flops, nbytes)
 
 
 def main_path_inputs():
@@ -342,27 +667,38 @@ def _time_case(fn, plain_fn, bound: dict) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "ok": ok}
 
 
-def phase_time(launches: dict) -> list[dict]:
+def phase_time(launches: dict, weights: tuple[float, ...], tune_wc) -> list[dict]:
+    """Time every kernel at its main-path shapes.  ``launches`` holds each
+    path's counts (``"solve"``, ``"tune"``, ``"refit"``: each path's reset
+    and read), ``weights`` the refit's combination and ``tune_wc`` the
+    tune's (q, C) per-column weights.  One row per (kernel, path shape)."""
+    import torch
+
     from repro_torch.kernels import ref
     from repro_torch.kernels.kernel_block import kernel_block_cuda
     from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda
+    from repro_torch.kernels.multi import (
+        kernel_block_multi_cuda,
+        kernel_matvec_components_cuda,
+        kernel_matvec_multi_cuda,
+    )
 
     x, xb, z = main_path_inputs()
     q = xb[:SMALL_M].contiguous()
     rows = [
-        {"name": "kernel_matvec", "route": "cuda",
+        {"name": "kernel_matvec", "case": "solve G_B", "route": "cuda",
          "source": "src/repro_torch/csrc/kernel_matvec.cu",
          "replaces": "src/repro/kernels/kernel_matvec.py:164",
-         "launches": launches["kernel_matvec"], "library_ms": None,
+         "launches": launches["solve"]["kernel_matvec"], "library_ms": None,
          "shape": [BLOCK, N_TRAIN, D, 1],
          **_time_case(lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=SIGMA,
                                                  precision="f32"),
                       lambda: ref.kernel_matvec(xb, x, z, SIGMA, kernel="rbf"),
                       _bound(BLOCK, N_TRAIN, D, 1))},
-        {"name": "kernel_block", "route": "cuda",
+        {"name": "kernel_block", "case": "solve K_BB", "route": "cuda",
          "source": "src/repro_torch/csrc/kernel_block.cu",
          "replaces": "src/repro/kernels/kernel_block.py:34",
-         "launches": launches["kernel_block"], "library_ms": None,
+         "launches": launches["solve"]["kernel_block"], "library_ms": None,
          "shape": [BLOCK, BLOCK, D],
          **_time_case(lambda: kernel_block_cuda(xb, xb, kernel="rbf", sigma=SIGMA,
                                                 precision="f32"),
@@ -370,33 +706,101 @@ def phase_time(launches: dict) -> list[dict]:
                       _bound(BLOCK, BLOCK, D, None))},
     ]
     # the small-m limit: SMALL_M queries fill one row tile, so one SM works
-    small = {"name": "kernel_matvec", "case": "small_m", "shape": [SMALL_M, N_TRAIN, D, 1],
-             **_time_case(lambda: kernel_matvec_cuda(q, x, z, kernel="rbf", sigma=SIGMA,
-                                                     precision="f32"),
-                          lambda: ref.kernel_matvec(q, x, z, SIGMA, kernel="rbf"),
-                          _bound(SMALL_M, N_TRAIN, D, 1))}
-    for r in [*rows, small]:
+    extra = [{"name": "kernel_matvec", "case": "small_m", "shape": [SMALL_M, N_TRAIN, D, 1],
+              **_time_case(lambda: kernel_matvec_cuda(q, x, z, kernel="rbf", sigma=SIGMA,
+                                                      precision="f32"),
+                           lambda: ref.kernel_matvec(q, x, z, SIGMA, kernel="rbf"),
+                           _bound(SMALL_M, N_TRAIN, D, 1))}]
+
+    # the multi-kernel kernels: (rbf, laplacian, matern52), sigma 1
+    ks, sg = MK_KERNELS, (SIGMA,) * len(MK_KERNELS)
+    w_t = torch.tensor(weights, device="cuda")
+    src = "src/repro_torch/csrc/kernel_multi.cu"
+    xt = x[:N_TUNE]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    omega, _ = torch.linalg.qr(torch.randn((N_TUNE, RANK), generator=gen, device="cuda"))
+    wc = torch.from_numpy(tune_wc).cuda()
+    vc = torch.randn((N_TUNE, wc.shape[1]), generator=gen, device="cuda")
+    multi = {"route": "cuda", "source": src, "library_ms": None}
+    rows += [
+        {"name": "kernel_matvec_multi", "case": "tune matvec_cols", **multi,
+         "replaces": "src/repro/kernels/multi.py:127",
+         "launches": launches["tune"]["kernel_matvec_multi"],
+         "shape": [N_TUNE, N_TUNE, D, wc.shape[1]],
+         **_time_case(lambda: kernel_matvec_multi_cuda(xt, xt, vc, wc, kernels=ks, sigmas=sg,
+                                                       precision="f32"),
+                      lambda: ref.kernel_matvec_multi(xt, xt, vc, sg, wc, kernels=ks),
+                      _bound_multi(N_TUNE, N_TUNE, D, wc.shape[1], ks, "cols"))},
+        {"name": "kernel_matvec_multi", "case": "refit G_B", **multi,
+         "replaces": "src/repro/kernels/multi.py:127",
+         "launches": launches["refit"]["kernel_matvec_multi"],
+         "shape": [BLOCK, N_TRAIN, D, 1],
+         **_time_case(lambda: kernel_matvec_multi_cuda(xb, x, z, weights, kernels=ks, sigmas=sg,
+                                                       precision="f32"),
+                      lambda: ref.kernel_matvec_multi(xb, x, z, sg, w_t, kernels=ks),
+                      _bound_multi(BLOCK, N_TRAIN, D, 1, ks, "matvec"))},
+        {"name": "kernel_matvec_components", "case": "tune sketch_components", **multi,
+         "replaces": "src/repro/kernels/multi.py:187",
+         "launches": launches["tune"]["kernel_matvec_components"],
+         "shape": [N_TUNE, N_TUNE, D, RANK],
+         **_time_case(lambda: kernel_matvec_components_cuda(xt, xt, omega, kernels=ks, sigmas=sg,
+                                                            precision="f32"),
+                      lambda: ref.kernel_matvec_components(xt, xt, omega, sg, kernels=ks),
+                      _bound_multi(N_TUNE, N_TUNE, D, RANK, ks, "components"))},
+        {"name": "kernel_block_multi", "case": "refit K_BB", **multi,
+         "replaces": "src/repro/kernels/multi.py:237",
+         "launches": launches["refit"]["kernel_block_multi"],
+         "shape": [BLOCK, BLOCK, D],
+         **_time_case(lambda: kernel_block_multi_cuda(xb, xb, kernels=ks, sigmas=sg,
+                                                      weights=weights, precision="f32"),
+                      lambda: ref.kernel_block_multi(xb, xb, sg, weights, kernels=ks),
+                      _bound_multi(BLOCK, BLOCK, D, 0, ks, "block"))},
+    ]
+    xq = xb[:N_TEST].contiguous()
+    extra += [
+        {"name": "kernel_matvec_multi", "case": "refit prediction",
+         "shape": [N_TEST, N_TRAIN, D, 1],
+         **_time_case(lambda: kernel_matvec_multi_cuda(xq, x, z, weights, kernels=ks, sigmas=sg,
+                                                       precision="f32"),
+                      lambda: ref.kernel_matvec_multi(xq, x, z, sg, w_t, kernels=ks),
+                      _bound_multi(N_TEST, N_TRAIN, D, 1, ks, "matvec"))},
+    ]
+    for r in [*rows, *extra]:
         emit({"phase": "time", **r})
         if not r["ok"]:
             fail(f"{r['name']} disagrees with its plain version at shape {r['shape']}")
     return rows
 
 
-def phase_launch() -> dict:
+def _run_launcher(module: str, *args: str) -> dict:
+    """Run ``python -m module args`` on the card; its last stdout line."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.krr_solve", "--method", "askotch",
-         "--iters", "50"],
+        [sys.executable, "-m", module, *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
     )
     if proc.returncode != 0:
-        fail(f"launcher exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    report = json.loads(proc.stdout.strip().splitlines()[-1])
+        fail(f"{module} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_launch() -> dict:
+    report = _run_launcher("repro_torch.launch.krr_solve", "--method", "askotch", "--iters", "50")
     emit({"phase": "launch", "report": report})
     if list(report) != LAUNCHER_KEYS:
         fail(f"launcher keys {list(report)} != the JAX launcher's {LAUNCHER_KEYS}")
     if not (math.isfinite(report["rel_residual"]) and report["rel_residual"] < 1.0):
         fail(f"launcher rel_residual {report['rel_residual']}")
+    tune_report = _run_launcher(
+        "repro_torch.launch.krr_tune", "--kernels", ",".join(MK_KERNELS),
+        "--n-weight-samples", str(M_WEIGHTS), "--n", "4000", "--iters", "100",
+        "--refit-iters", "100")
+    emit({"phase": "launch", "module": "krr_tune",
+          "report": {k: v for k, v in tune_report.items() if k not in ("records", "trace")}})
+    if list(tune_report) != TUNE_LAUNCHER_KEYS:
+        fail(f"krr_tune keys {list(tune_report)} != the JAX launcher's {TUNE_LAUNCHER_KEYS}")
+    if not math.isfinite(tune_report["refit"]["test_rmse"]):
+        fail(f"krr_tune refit test_rmse {tune_report['refit']['test_rmse']}")
     return report
 
 
@@ -418,12 +822,19 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     phase_check()
+    phase_check_multi()
     solve_rec = phase_solve()
-    rows = phase_time(solve_rec["launches"])
+    tune_rec, tune_result = phase_tune()
+    refit_rec = phase_refit(tune_result.best)
+    # each path's launch counts, from its own reset and read
+    launches = {"solve": solve_rec["launches"], "tune": tune_rec["launches"],
+                "refit": refit_rec["launches"]}
+    rows = phase_time(launches, tuple(tune_result.best["weights"]),
+                      _tune_weight_cols(tune_result))
     phase_launch()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{k: r[k] for k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+        "name", "case", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for r in rows]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

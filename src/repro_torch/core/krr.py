@@ -34,9 +34,10 @@ def residual_report(op, y: torch.Tensor, lam: float, w: torch.Tensor) -> tuple[t
 
 @dataclasses.dataclass(frozen=True)
 class KRRProblem:
-    """Problem container.  ``kernel`` is one kernel name or
-    ``"precomputed"`` (``x`` is then the train Gram); a tuple of names
-    (multi-kernel) is accepted here but its operator is not yet ported."""
+    """Problem container.  ``kernel`` is one kernel name, a tuple of names
+    (a weighted-sum multi-kernel problem: ``sigma`` may then be per kernel,
+    ``weights`` defaults to uniform) or ``"precomputed"`` (``x`` is then the
+    train Gram)."""
 
     x: torch.Tensor  # (n, d) features
     y: torch.Tensor  # (n,) or (n, t) targets (t one-vs-all heads)

@@ -1,12 +1,16 @@
-"""Unified solver entry point — the port of ``repro.core.solver_api.solve``.
+"""Unified solver entry points — the port of ``repro.core.solver_api``'s
+``solve`` and ``tune``.
 
 ``solve(problem, method, **kw)`` keeps the reference's contract for the
 methods ported so far, ``"askotch"`` and ``"skotch"``: multi-RHS problems,
 per-head convergence in the history records, unknown options failing fast
-with the accepted list, and the universal ``kernel=``/``weights=``/
-``precision=`` overrides with the bf16 tolerance warning.  Every other
-method of :data:`METHODS` raises ``NotImplementedError`` ("not yet ported").
-The ``backend`` option is gone: the problem's tensors decide the device.
+with the accepted list, and the universal ``kernel=`` (a name or a tuple of
+names: a weighted-sum multi-kernel solve) / ``weights=`` / ``precision=``
+overrides with the bf16 tolerance warning.  Every other method of
+:data:`METHODS` raises ``NotImplementedError`` ("not yet ported").
+``tune(problem, **kw)`` routes to the single-kernel or the multi-kernel
+search with the reference's option lists.  The ``backend`` option is gone:
+the problem's tensors decide the device.
 """
 
 from __future__ import annotations
@@ -54,6 +58,27 @@ METHOD_OPTIONS: dict[str, tuple[str, ...]] = {
     "askotch": _ASKOTCH_CFG_KEYS + _ASKOTCH_SOLVE_KEYS,
     "skotch": _ASKOTCH_CFG_KEYS + _ASKOTCH_SOLVE_KEYS,
 }
+
+#: accepted keyword options of tune() (the reference's list): ``policy``
+#: ("grid" | "random" | "halving" or a SearchPolicy instance),
+#: ``halving_eta`` and ``sigma_continuation`` select the search policy;
+#: ``search``/``num_samples`` remain the legacy grid/random spelling
+TUNE_OPTIONS: tuple[str, ...] = (
+    "sigmas", "lams", "folds", "search", "num_samples", "policy",
+    "halving_eta", "sigma_continuation", "strategy",
+    "rank", "max_iters", "tol", "seed", "warm_start", "precision",
+    "telemetry",
+)
+
+#: accepted keyword options of tune() on the multi-kernel (weight-axis)
+#: path — selected when ``kernels``/``n_weight_samples``/``weights`` is
+#: passed or the problem's kernel is a tuple
+MULTIKERNEL_TUNE_OPTIONS: tuple[str, ...] = (
+    "kernels", "sigmas", "lams", "folds", "n_weight_samples", "weights",
+    "dirichlet_alpha", "policy", "halving_eta", "sigma_continuation",
+    "strategy", "rank", "max_iters", "tol", "seed", "warm_start", "precision",
+    "telemetry",
+)
 
 
 @dataclasses.dataclass
@@ -130,3 +155,57 @@ def solve(problem: KRRProblem, method: str = "askotch", **kw) -> SolveOutput:
               "wall_time_s": res.wall_time_s, **_head_info(problem, res.history)},
         predict_fn=lambda xt: problem.predict(res.w, xt),
     )
+
+
+def tune(problem: KRRProblem, *, mesh=None, **kw):
+    """Hyperparameter search over (sigma, lam) with k-fold CV — the
+    policy-driven tile-sharing sweep of ``repro_torch.core.tune``.
+
+    The search grows a WEIGHT axis when the problem is multi-kernel: pass
+    ``kernels=("rbf", "laplacian", ...)`` (or a problem whose ``kernel`` is
+    already a tuple) and it becomes a random search over convex kernel
+    combinations (``repro_torch.core.tune.tune_multikernel``).
+
+    Args:
+      problem: data container (``x``/``y``/``kernel``/``precision`` used;
+        ``sigma``/``lam_unscaled`` are the quantities being tuned).
+      mesh: must be None until the distributed slice.
+      **kw: any of :data:`TUNE_OPTIONS` — or, on the multi-kernel path,
+        :data:`MULTIKERNEL_TUNE_OPTIONS`; unknown options raise ValueError
+        with the accepted list.  ``telemetry`` must be None until the
+        telemetry slice.
+
+    Returns:
+      A :class:`repro_torch.core.tune.TuneResult`; refit with
+      ``solve(apply_best(problem, result), method)``.
+    """
+    multikernel = (
+        isinstance(problem.kernel, tuple)
+        or any(k in kw for k in ("kernels", "n_weight_samples", "weights"))
+    )
+    accepted = MULTIKERNEL_TUNE_OPTIONS if multikernel else TUNE_OPTIONS
+    unknown = sorted(set(kw) - set(accepted))
+    if unknown:
+        kind = "multi-kernel tune()" if multikernel else "tune()"
+        raise ValueError(
+            f"unknown option(s) {unknown} for {kind}; "
+            f"accepted: {sorted(accepted)}"
+        )
+    if "precision" in kw:
+        # universal precision override, mirroring solve(): the policy lives
+        # on the problem and rides into every candidate operator
+        problem = dataclasses.replace(
+            problem, precision=check_precision(kw.pop("precision"))
+        )
+    if mesh is not None and problem.kernel == "precomputed":
+        raise ValueError(
+            "kernel='precomputed' cannot run over a mesh: the Gram matrix is "
+            "a single-host array with no row-sharded kernel evaluation path — "
+            "drop mesh= or pass the raw features with a kernel name"
+        )
+    from repro_torch.core.tune import tune as _tune
+    from repro_torch.core.tune import tune_multikernel as _tune_multikernel
+
+    if multikernel:
+        return _tune_multikernel(problem, mesh=mesh, **kw)
+    return _tune(problem, mesh=mesh, **kw)

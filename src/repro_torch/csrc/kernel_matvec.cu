@@ -40,29 +40,6 @@
 
 using namespace pk;
 
-// V values of rows [j0, j0 + TN) x columns [c0, c0 + tc) of a row-major
-// (n, t) matrix, prefetched into registers, then written to Vs[c][row].
-template <typename T, int TC, int PV>
-__device__ __forceinline__ void fetch_v(float (&pv)[PV], const T* __restrict__ v, int64_t j0,
-                                        int64_t n, int t, int c0, int tc) {
-#pragma unroll
-  for (int r = 0; r < PV; ++r) {
-    const int idx = threadIdx.x + r * THREADS;
-    const int jj = idx % TN, c = idx / TN;
-    const int64_t g = j0 + jj;
-    pv[r] = (c < tc && g < n) ? to_f32(v[g * t + c0 + c]) : 0.0f;
-  }
-}
-
-template <int TC, int PV>
-__device__ __forceinline__ void commit_v(float (*Vs)[TN], const float (&pv)[PV]) {
-#pragma unroll
-  for (int r = 0; r < PV; ++r) {
-    const int idx = threadIdx.x + r * THREADS;
-    if (idx < TN * TC) Vs[idx / TN][idx % TN] = pv[r];
-  }
-}
-
 template <typename T, int KID, int TC>
 __global__ void __launch_bounds__(THREADS, TC == 1 ? 3 : 1)
 kernel_matvec_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ v,
@@ -136,7 +113,7 @@ kernel_matvec_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* 
         } else {
           kv = kernel_map<KID>(base_value<FAM>(acc[i][j], av[i], bv[j]), mc);
         }
-        if (BF16) kv = __bfloat162float(__float2bfloat16(kv));
+        if (BF16) kv = round_bf16(kv);
         acc[i][j] = lane * JN + j < cols ? kv : 0.0f;
       }
 #pragma unroll
@@ -149,14 +126,7 @@ kernel_matvec_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* 
     }
   }
 
-  // The LANES threads of a row group are consecutive lanes of one warp.
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int c = 0; c < TC; ++c)
-#pragma unroll
-      for (int off = LANES / 2; off > 0; off >>= 1)
-        o[i][c] += __shfl_xor_sync(0xffffffffu, o[i][c], off);
+  reduce_lanes(o);
   if (lane == 0)
 #pragma unroll
     for (int i = 0; i < RM; ++i) {

@@ -1,14 +1,15 @@
 """Dispatch for the fused kernel ops, by the tensor's device.
 
 A CPU tensor runs the plain PyTorch version (``ref``); a CUDA tensor
-launches the hand-written CUDA kernel (``kernel_matvec`` /
-``kernel_block``), which raises on what it does not take.  There is no
-fallback from one to the other.
+launches the hand-written CUDA kernel (``kernel_matvec``, ``kernel_block``,
+and the three multi-kernel ops of ``multi``), which raises on what it does
+not take.  There is no fallback from one to the other.
 
-Both entry points share the contract of ``repro.kernels.ops``: never form
+Every entry point shares the contract of ``repro.kernels.ops``: never form
 K(a, b) beyond one tile, accumulate in f32, accept a multi-RHS value matrix
 (an ``(n, t)`` v rides the same kernel tiles as an ``(n,)`` v), take
-``precision="f32"|"bf16"``, and cast ``sigma`` once, here, to a Python float.
+``precision="f32"|"bf16"``, and cast ``sigma`` once, here, to a Python float
+(a tuple of floats for the multi-kernel ops).
 
 Solvers do not call these directly; they go through
 ``repro_torch.core.operator.KernelOperator``.
@@ -16,15 +17,34 @@ Solvers do not call these directly; they go through
 
 from __future__ import annotations
 
+from collections.abc import Sequence
+
 import torch
 
 from repro_torch.core.kernels import kernel_family
 from repro_torch.kernels import ref
 from repro_torch.kernels.kernel_block import kernel_block_cuda
 from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda
+from repro_torch.kernels.multi import (
+    kernel_block_multi_cuda,
+    kernel_matvec_components_cuda,
+    kernel_matvec_multi_cuda,
+)
 from repro_torch.kernels.precision import PRECISIONS, check_precision
 
-__all__ = ["PRECISIONS", "check_precision", "kernel_matvec", "kernel_block", "reset_launches", "launches"]
+__all__ = [
+    "PRECISIONS", "check_precision", "kernel_matvec", "kernel_block", "kernel_matvec_multi",
+    "kernel_matvec_components", "kernel_block_multi", "reset_launches", "launches",
+]
+
+#: every CUDA kernel wrapper, by the name its launch count is reported under
+_WRAPPERS = {
+    "kernel_matvec": kernel_matvec_cuda,
+    "kernel_block": kernel_block_cuda,
+    "kernel_matvec_multi": kernel_matvec_multi_cuda,
+    "kernel_matvec_components": kernel_matvec_components_cuda,
+    "kernel_block_multi": kernel_block_multi_cuda,
+}
 
 
 def _route(*xs: torch.Tensor) -> str:
@@ -80,15 +100,119 @@ def kernel_block(
     return kernel_block_cuda(a, b, kernel=kernel, sigma=sigma, precision=precision)
 
 
+# ---------------------------------------------------------------------------
+# multi-kernel entry points — same contract, q kernels per data sweep.
+# ``kernels``/``sigmas`` are per-kernel tuples; ``weights`` is q floats for
+# a fixed weighted-sum operator or a (q, t) tensor of per-column weight
+# vectors (the multi-kernel tuning engine).
+# ---------------------------------------------------------------------------
+
+
+def _multi_spec(kernels, sigmas, precision):
+    precision = check_precision(precision)
+    kernels = tuple(kernels)
+    for k in kernels:
+        kernel_family(k)  # unknown kernel names raise here
+    sigmas = tuple(float(s) for s in sigmas)
+    if len(sigmas) != len(kernels):
+        raise ValueError(f"{len(sigmas)} sigmas for {len(kernels)} kernels")
+    return kernels, sigmas, precision
+
+
+def kernel_matvec_multi(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kernels: tuple[str, ...],
+    sigmas: tuple[float, ...],
+    weights,
+    chunk_a: int = 4096,
+    chunk_b: int = 8192,
+    precision: str = "f32",
+) -> torch.Tensor:
+    """out = (sum_i w_i K_i(a, b)) @ v without materializing any K_i.
+
+    v: (n,) -> (m,) or (n, t) -> (m, t); ``weights``: a sequence of q floats
+    (the fixed weighted-sum operator; it reaches the CUDA kernel by value)
+    or a (q, t) tensor on the operands' device (one weight vector per
+    column: the multi-kernel tuning engine).
+    """
+    kernels, sigmas, precision = _multi_spec(kernels, sigmas, precision)
+    q = len(kernels)
+    if isinstance(weights, torch.Tensor):
+        if weights.ndim != 2 or weights.shape[0] != q:
+            raise ValueError(f"per-column weights must be a ({q}, t) tensor; "
+                             f"got {tuple(weights.shape)}")
+        operands, w_plain = (a, b, v, weights), weights
+    elif isinstance(weights, Sequence):
+        weights = tuple(float(x) for x in weights)
+        if len(weights) != q:
+            raise ValueError(f"{len(weights)} weights for {q} kernels")
+        operands, w_plain = (a, b, v), None
+    else:
+        raise TypeError(f"weights must be a sequence of {q} floats or a ({q}, t) tensor; "
+                        f"got {type(weights).__name__}")
+    if _route(*operands) == "cpu":
+        if w_plain is None:
+            w_plain = torch.tensor(weights, dtype=torch.float32)
+        return ref.kernel_matvec_multi(
+            a, b, v, sigmas, w_plain, kernels=kernels, chunk_a=chunk_a, chunk_b=chunk_b,
+            precision=precision,
+        )
+    return kernel_matvec_multi_cuda(a, b, v, weights, kernels=kernels, sigmas=sigmas,
+                                    precision=precision)
+
+
+def kernel_matvec_components(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kernels: tuple[str, ...],
+    sigmas: tuple[float, ...],
+    chunk_a: int = 4096,
+    chunk_b: int = 8192,
+    precision: str = "f32",
+) -> torch.Tensor:
+    """Stacked per-kernel products (q, m[, t]): out[i] = K_i(a, b) @ v, one
+    data sweep for all q (the multi-kernel tuner's per-kernel sketches)."""
+    kernels, sigmas, precision = _multi_spec(kernels, sigmas, precision)
+    if _route(a, b, v) == "cpu":
+        return ref.kernel_matvec_components(
+            a, b, v, sigmas, kernels=kernels, chunk_a=chunk_a, chunk_b=chunk_b,
+            precision=precision,
+        )
+    return kernel_matvec_components_cuda(a, b, v, kernels=kernels, sigmas=sigmas,
+                                         precision=precision)
+
+
+def kernel_block_multi(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    kernels: tuple[str, ...],
+    sigmas: tuple[float, ...],
+    weights: tuple[float, ...],
+    precision: str = "f32",
+) -> torch.Tensor:
+    """Materialize sum_i w_i K_i(a, b) (small/medium blocks only)."""
+    kernels, sigmas, precision = _multi_spec(kernels, sigmas, precision)
+    weights = tuple(float(w) for w in weights)
+    if len(weights) != len(kernels):
+        raise ValueError(f"{len(weights)} weights for {len(kernels)} kernels")
+    if _route(a, b) == "cpu":
+        return ref.kernel_block_multi(a, b, sigmas, weights, kernels=kernels, precision=precision)
+    return kernel_block_multi_cuda(a, b, kernels=kernels, sigmas=sigmas, weights=weights,
+                                   precision=precision)
+
+
 def launches() -> dict[str, int]:
     """CUDA kernel launches counted by each wrapper since the last reset."""
-    return {
-        "kernel_matvec": kernel_matvec_cuda.launches,
-        "kernel_block": kernel_block_cuda.launches,
-    }
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
-    kernel_matvec_cuda.launches = 0
-    kernel_block_cuda.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

@@ -372,8 +372,10 @@ def test_solver_api_fail_fast():
         solve(p, "askotch", bogus=1)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         solve(p, "pcg-nystrom")
-    with pytest.raises(NotImplementedError, match="multi-kernel"):
-        solve(p, "askotch", kernel=("rbf", "laplacian"), max_iters=1)
+    out = solve(p, "askotch", kernel=("rbf", "laplacian"), max_iters=1)  # multi-kernel runs
+    assert out.w.shape == (64,)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        solve(p, "askotch", kernel=("rbf", "gauss"), max_iters=1)
     with pytest.raises(ValueError, match="weights="):
         solve(p, "askotch", weights=(1.0,), max_iters=1)
     with pytest.raises(NotImplementedError, match="telemetry"):
@@ -424,7 +426,8 @@ def test_cuda_without_card_raises(monkeypatch):
 def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys, repro_torch, repro_torch.convert, repro_torch.launch.krr_solve, "
-        "repro_torch.core.solver_api, repro_torch.core.skotch\n"
+        "repro_torch.core.solver_api, repro_torch.core.skotch, repro_torch.launch.krr_tune, "
+        "repro_torch.core.tuning, repro_torch.core.multikernel, repro_torch.kernels.multi\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

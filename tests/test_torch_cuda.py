@@ -1,6 +1,7 @@
 """Card-only tests of the port: the hand-written CUDA kernels against their
-plain PyTorch versions, and one ASkotch step on the card against the same
-step on the CPU.
+plain PyTorch versions, one ASkotch step on the card against the same step
+on the CPU, and a multi-kernel operator whose every primitive launches the
+multi-kernel CUDA kernels.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX:
@@ -23,8 +24,10 @@ from repro_torch.core import askotch  # noqa: E402
 from repro_torch.core.kernels import KERNEL_NAMES  # noqa: E402
 from repro_torch.core.krr import KRRProblem  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.core.multikernel import WeightedSumKernelOperator  # noqa: E402
 from repro_torch.kernels.kernel_block import kernel_block_cuda  # noqa: E402
 from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda  # noqa: E402
+from repro_torch.kernels.multi import QMAX, QMAX_COMPONENTS  # noqa: E402
 
 F32_TOL = (2e-4, 2e-5)
 BF16_TOL = (0.05, 0.02)
@@ -109,3 +112,76 @@ def test_cuda_step_matches_cpu_step(cuda_device, rng, t):
         out[str(dev)] = [s.cpu().numpy() for s in (state.w, state.v, state.z, aux.step_l)]
     for got, want in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(got, want, **_tol(want, 1e-3, 1e-4))
+
+
+#: (kernels, sigmas): l2 + l1, dot + cos, one kernel twice, and q = 9 —
+#: above both per-launch caps, so the wrapper splits it into groups
+MULTI_CASES = {
+    "l2+l1": (("rbf", "laplacian", "matern52"), (1.5, 0.8, 2.2)),
+    "dot+cos": (("linear", "polynomial", "sigmoid", "cosine"), (1.5, 1.1, 2.0, 1.0)),
+    "rbf-twice": (("rbf", "rbf"), (0.5, 2.0)),
+    "q9": (("rbf", "laplacian", "matern52", "linear", "polynomial", "sigmoid", "cosine",
+            "rbf", "laplacian"), (1.5, 0.8, 2.2, 1.5, 1.1, 2.0, 1.0, 0.6, 3.0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MULTI_CASES))
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_multi_kernels_match_plain(cuda_device, rng, case, precision):
+    """The three multi-kernel kernels against their plain versions at a
+    ragged n (301) and d (37), with (q,) and per-column (q, t) weights; the
+    launch counts grow by one per group of at most QMAX (QMAX_COMPONENTS)."""
+    kernels, sigmas = MULTI_CASES[case]
+    q = len(kernels)
+    a = _t(rng.standard_normal((130, 37)).astype(np.float32) / 6).to(cuda_device)
+    b = _t(rng.standard_normal((301, 37)).astype(np.float32) / 6).to(cuda_device)
+    v = _t(rng.standard_normal((301, 5)).astype(np.float32)).to(cuda_device)
+    w = tuple(float(x) for x in rng.dirichlet(np.ones(q)))
+    wc = _t(rng.dirichlet(np.ones(q), size=5).T.astype(np.float32)).to(cuda_device)
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    kw = dict(kernels=kernels, sigmas=sigmas, precision=precision)
+    before = ops.launches()
+    got = [
+        ops.kernel_matvec_multi(a, b, v[:, 0], weights=w, **kw),
+        ops.kernel_matvec_multi(a, b, v, weights=wc, **kw),
+        ops.kernel_matvec_components(a, b, v, **kw),
+        ops.kernel_block_multi(a, b, weights=w, **kw),
+    ]
+    torch.cuda.synchronize()
+    after = ops.launches()
+    want = [
+        ops.ref.kernel_matvec_multi(a, b, v[:, 0], sigmas, torch.tensor(w, device=cuda_device),
+                                    kernels=kernels, precision=precision),
+        ops.ref.kernel_matvec_multi(a, b, v, sigmas, wc, kernels=kernels, precision=precision),
+        ops.ref.kernel_matvec_components(a, b, v, sigmas, kernels=kernels, precision=precision),
+        ops.ref.kernel_block_multi(a, b, sigmas, w, kernels=kernels, precision=precision),
+    ]
+    for g, wnt in zip(got, want):
+        wnt = wnt.cpu().numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), wnt, **_tol(wnt, *tol))
+    groups, groups_c = -(-q // QMAX), -(-q // QMAX_COMPONENTS)
+    assert after["kernel_matvec_multi"] - before["kernel_matvec_multi"] == 2 * groups
+    assert after["kernel_matvec_components"] - before["kernel_matvec_components"] == groups_c
+    assert after["kernel_block_multi"] - before["kernel_block_multi"] == groups
+
+
+@pytest.mark.cuda
+def test_cuda_weighted_operator_launches_its_kernels(cuda_device, rng):
+    """A kernel tuple on CUDA tensors runs every operator primitive through
+    the multi-kernel CUDA kernels (and never through the single-kernel ones)."""
+    x = _t(rng.standard_normal((500, 9)).astype(np.float32)).to(cuda_device)
+    v = _t(rng.standard_normal((500, 4)).astype(np.float32)).to(cuda_device)
+    wc = _t(rng.dirichlet(np.ones(3), size=4).T.astype(np.float32)).to(cuda_device)
+    op = WeightedSumKernelOperator(x=x, kernels=("rbf", "laplacian", "matern52"),
+                                   weights=(0.5, 0.2, 0.3))
+    ops.reset_launches()
+    out = [op.matvec(v), op.block_idx(torch.arange(64, device=cuda_device)),
+           op.matvec_cols(v, wc), op.sketch_components(v)]
+    torch.cuda.synchronize()
+    assert all(o.device.type == "cuda" for o in out)
+    assert ops.launches() == {"kernel_matvec": 0, "kernel_block": 0, "kernel_matvec_multi": 2,
+                              "kernel_matvec_components": 1, "kernel_block_multi": 1}
+    cpu = op.with_points(x.cpu())
+    want = cpu.matvec(v.cpu()).numpy()
+    np.testing.assert_allclose(out[0].cpu().numpy(), want, **_tol(want, *F32_TOL))

@@ -1,46 +1,54 @@
 #!/usr/bin/env python3
-"""Where an ASkotch iteration of the PyTorch port spends its time on the card.
+"""Where a step of the PyTorch port spends its time on the card.
 
     PYTHONPATH=src python3 tools/profile_torch_step.py [--n 1000000] [--steps 3]
+    PYTHONPATH=src python3 tools/profile_torch_step.py --kernels rbf,laplacian,matern52 \\
+        --weights 0.665,0.021,0.314
+    PYTHONPATH=src python3 tools/profile_torch_step.py --path tune --n 20000 --steps 5
 
-Builds the taxi configuration of ``chip_smoke.py`` (d = 9, rbf, sigma = 1,
-lam_unscaled = 2e-7, b = 50,000, r = 100, f32), runs two warm-up steps of
-``repro_torch.core.askotch.make_step``, then ``--steps`` steps under
-``torch.profiler`` (CPU + CUDA activity).  Prints one JSON line per device
-operation group (top 15 by device time) and a summary line with the host
-wall time per step (synchronised) and the device time the trace saw.
-Needs a CUDA card.
+``--path askotch`` (default): the taxi configuration of ``chip_smoke.py``
+(d = 9, sigma = 1, lam_unscaled = 2e-7, b = 50,000, r = 100, f32) with
+``--kernels`` (one name, or a comma list: the weighted-sum refit with
+``--weights``); two warm-up steps of ``repro_torch.core.askotch.make_step``,
+then ``--steps`` steps under ``torch.profiler``.
+
+``--path tune``: one sigma group of the multi-kernel tune of
+``chip_smoke.py`` (rbf + laplacian + matern52, 8 Dirichlet weight samples x
+4 lams x 5 folds = 160 columns, rank 100) through
+``repro_torch.core.tune.engine.solve_sigma_group``; a warm-up group of 2 CG
+iterations, then a group of ``--steps`` iterations (tol 0) under the
+profiler.  The per-step wall time comes from the CG history (each iteration
+ends in a host read of the column norms), the sketch and the scoring sweep
+stay out of it.
+
+Prints one JSON line per device operation group (top 15 by device time, per
+step) and a summary line with the host wall time per step and the device
+time the trace saw.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import askotch
 from repro_torch.core.krr import KRRProblem
+from repro_torch.core.tune import engine
 from repro_torch.data import synthetic
+from repro_torch.obs.trace import TraceRecorder
+
+TUNE_LAMS, TUNE_WEIGHTS, TUNE_FOLDS = (5e-8, 2e-7, 8e-7, 3.2e-6), 8, 5
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--n", type=int, default=1_000_000)
-    ap.add_argument("--block", type=int, default=50_000)
-    ap.add_argument("--steps", type=int, default=3)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_torch_step: needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    x, y = synthetic.taxi_like(0, args.n, 9, device="cuda")
-    problem = KRRProblem(x=x, y=y, kernel="rbf", sigma=1.0, lam_unscaled=2e-7)
+def _askotch_steps(args, problem):
     step = askotch.make_step(problem, askotch.ASkotchConfig(block_size=args.block, rank=100))
     state = askotch.init_state(problem, seed=0)
     for _ in range(2):
@@ -48,12 +56,71 @@ def main() -> None:
     torch.cuda.synchronize()
 
     walls = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
+        nonlocal state
         for _ in range(args.steps):
             t0 = time.perf_counter()
             state, _ = step(state)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+
+    return run, walls
+
+
+def _tune_steps(args, problem):
+    rng = np.random.default_rng(0)
+    group = engine.SigmaGroup(
+        sigma=1.0, lam_list=TUNE_LAMS,
+        weight_samples=rng.dirichlet(np.ones(len(problem.kernel)), size=TUNE_WEIGHTS).astype(np.float32),
+    )
+    folds = engine.make_folds(problem.n, TUNE_FOLDS, np.random.default_rng(1))
+    y2 = problem.y.cpu().numpy()[:, None]
+
+    def group_solve(iters):
+        rec = TraceRecorder()
+        engine.solve_sigma_group(problem.op, y2, group, folds, rank=100, max_iters=iters, tol=0.0,
+                                 seed=0, warm_start=True, counter=engine.SweepCounter(),
+                                 recorder=rec)
+        return [b["time_s"] - a["time_s"] for a, b in zip(rec.history, rec.history[1:])]
+
+    group_solve(2)
+    torch.cuda.synchronize()
+    walls = []
+
+    def run():
+        walls.extend(group_solve(args.steps + 1))
+
+    return run, walls
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", default="askotch", choices=["askotch", "tune"])
+    ap.add_argument("--n", type=int, default=None,
+                    help="rows (default 10^6 for askotch, 20,000 for tune)")
+    ap.add_argument("--block", type=int, default=50_000)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--kernels", default=None,
+                    help="comma list of kernel names (default rbf; rbf,laplacian,matern52 for tune)")
+    ap.add_argument("--weights", default=None, help="comma list of combination weights")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_step: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    default_kernels = "rbf" if args.path == "askotch" else "rbf,laplacian,matern52"
+    kernels = tuple((args.kernels or default_kernels).split(","))
+    n = args.n or (1_000_000 if args.path == "askotch" else 20_000)
+    x, y = synthetic.taxi_like(0, n, 9, device="cuda")
+    weights = None if args.weights is None else tuple(float(w) for w in args.weights.split(","))
+    problem = KRRProblem(x=x, y=y, kernel=kernels[0] if len(kernels) == 1 else kernels,
+                         weights=weights, sigma=1.0, lam_unscaled=2e-7)
+    run, walls = (_askotch_steps if args.path == "askotch" else _tune_steps)(args, problem)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
 
     # device kernels only: a CPU op's device time is its kernels' time again
     rows = []
@@ -69,10 +136,12 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "summary": True, "n": args.n, "block": args.block, "steps": args.steps,
+        "summary": True, "path": args.path, "kernels": list(kernels), "n": n,
+        "block": args.block, "steps": args.steps,
         "wall_ms_per_step": [1e3 * w for w in walls],
+        "wall_ms_per_step_median": 1e3 * statistics.median(walls),
         "device_ms_per_step": device_ms / args.steps,
-        "idle_share": 1.0 - (device_ms / 1e3) / sum(walls),
+        "idle_share": (1.0 - (device_ms / 1e3) / sum(walls)) if args.path == "askotch" else None,
         "card": smi,
     }))
 
