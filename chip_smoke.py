@@ -24,7 +24,10 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                the wrapper splits them) x {f32, bf16} x d in {9, 37}; the
                weighted matvec with (q,) weights on a 1-D v and on t = 8
                and with per-column (q, 8) weights, the stacked matvec on a
-               1-D v and on t = 8, and the weighted block.
+               1-D v and on t = 8, and the weighted block; then the weighted
+               matvec's column path at t = 160, 161 and 150, with (q,) and
+               per-column (q, t) weights, for every combination (q = 9
+               included).
   4. solve   — the main path through ``solver_api.solve("askotch")`` at the
                paper's taxi configuration (d = 9, rbf, sigma = 1,
                lam_unscaled = 2e-7, b = 50,000, r = 100, f32), with n cut
@@ -297,6 +300,12 @@ MULTI_CASES = [
 ]
 
 
+#: the widths at which check_multi also holds the weighted matvec's column
+#: path: the tune's 160 columns (one 160-column block), 161 (two 128-column
+#: blocks of 84 and 77 columns) and 150 (one ragged 160-column block)
+WIDE_T = (160, 161, 150)
+
+
 def phase_check_multi() -> dict:
     import numpy as np
     import torch
@@ -313,6 +322,9 @@ def phase_check_multi() -> dict:
              "kernel_block_multi": 0.0}
     gen = torch.Generator().manual_seed(2)
     rng = np.random.default_rng(2)
+    # the wide cases draw from their own streams, so the t = 8 inputs stay
+    gen_wide = torch.Generator().manual_seed(6)
+    rng_wide = np.random.default_rng(6)
     n_checks = 0
 
     def check(name, got, want, prec, **case):
@@ -331,6 +343,7 @@ def phase_check_multi() -> dict:
         a[3] = 0.0  # a zero row: cosine's zero-norm-as-1 rule
         v1 = torch.randn((n,), generator=gen).cuda()
         vt = torch.randn((n, t), generator=gen).cuda()
+        v_wide = {tw: torch.randn((n, tw), generator=gen_wide).cuda() for tw in WIDE_T}
         for kernels, sigmas in MULTI_CASES:
             q = len(kernels)
             w = tuple(float(x) for x in rng.dirichlet(np.ones(q)))
@@ -355,7 +368,20 @@ def phase_check_multi() -> dict:
                 got = kernel_block_multi_cuda(a, b, kernels=kernels, sigmas=sigmas, weights=w,
                                               precision=prec)
                 check("kernel_block_multi", got, want, prec, **case)
-    emit({"phase": "check_multi", "m": m, "n": n, "t": t, "checks": n_checks,
+            # the weighted matvec's column path at the tune's width and at
+            # ragged ones, on both column-block widths
+            for tw in WIDE_T:
+                w_wide = torch.from_numpy(
+                    rng_wide.dirichlet(np.ones(q), size=tw).T.astype(np.float32)).cuda()
+                for prec in ("f32", "bf16"):
+                    for wts, label in ((w, f"w(q,) v(n,{tw})"), (w_wide, f"w(q,{tw}) v(n,{tw})")):
+                        want = ref.kernel_matvec_multi(
+                            a, b, v_wide[tw], sigmas, w_wide if wts is w_wide else w_t,
+                            kernels=kernels, precision=prec)
+                        got = kernel_matvec_multi_cuda(a, b, v_wide[tw], wts, kernels=kernels,
+                                                       sigmas=sigmas, precision=prec)
+                        check("kernel_matvec_multi", got, want, prec, **case, operands=label)
+    emit({"phase": "check_multi", "m": m, "n": n, "t": [t, *WIDE_T], "checks": n_checks,
           "worst_abs_err": worst})
     return worst
 

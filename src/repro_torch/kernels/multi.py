@@ -34,6 +34,7 @@ QMAX_COMPONENTS = 4
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "kernel_matvec_multi_launch": [_P] * 5 + [_LL, _LL, _I, _I, _I] + [_P] * 3 + [_I, _I, _P],
+    "kernel_matvec_multi_cols_launch": [_P] * 5 + [_LL, _LL, _I, _I, _I] + [_P] * 3 + [_I, _I, _P],
     "kernel_matvec_components_launch": [_P] * 4 + [_LL, _LL, _I, _I, _I] + [_P] * 2 + [_I, _P],
     "kernel_block_multi_launch": [_P] * 3 + [_LL, _LL, _I, _I] + [_P] * 3 + [_I, _I, _P],
 }
@@ -100,7 +101,9 @@ def kernel_matvec_multi_cuda(
     (m, t).  ``weights`` is a sequence of q floats (one weight per kernel,
     passed to the kernel by value) or a CUDA f32 tensor (q, t) (per-column
     weights, read by the kernel).  The operands are cast to the policy's
-    type; the weights stay f32.
+    type; the weights stay f32.  t = 1 launches the sweep of
+    ``kernel_matvec``; t > 1 the column path, which forms each pair's kernel
+    values once for up to 160 columns.
     """
     q = _check_spec(kernels, sigmas)
     check_operands(a, b, v)
@@ -120,12 +123,14 @@ def kernel_matvec_multi_cuda(
             raise ValueError(f"expected {q} weights; got {len(w_host)}")
     dt = torch.bfloat16 if precision == "bf16" else torch.float32
     a, b, v = (x.to(dt).contiguous() for x in (a, b, v))
+    if t > 1:  # the column path reads f32 operands: bf16 values widen exactly
+        a, b, v = (x.float() for x in (a, b, v))
     m, d = a.shape
     n = b.shape[0]
     out = torch.empty((m,) if v.ndim == 1 else (m, t), dtype=torch.float32, device=a.device)
     if m == 0:  # nothing to launch
         return out
-    fn = _fn("kernel_matvec_multi_launch")
+    fn = _fn("kernel_matvec_multi_cols_launch" if t > 1 else "kernel_matvec_multi_launch")
     with torch.cuda.device(a.device):  # the launch goes to the runtime's current device
         stream = torch.cuda.current_stream(a.device).cuda_stream
         for g0 in range(0, q, QMAX):

@@ -27,7 +27,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.core.multikernel import WeightedSumKernelOperator  # noqa: E402
 from repro_torch.kernels.kernel_block import kernel_block_cuda  # noqa: E402
 from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda  # noqa: E402
-from repro_torch.kernels.multi import QMAX, QMAX_COMPONENTS  # noqa: E402
+from repro_torch.kernels.multi import QMAX, QMAX_COMPONENTS, kernel_matvec_multi_cuda  # noqa: E402
 
 F32_TOL = (2e-4, 2e-5)
 BF16_TOL = (0.05, 0.02)
@@ -164,6 +164,35 @@ def test_cuda_multi_kernels_match_plain(cuda_device, rng, case, precision):
     assert after["kernel_matvec_multi"] - before["kernel_matvec_multi"] == 2 * groups
     assert after["kernel_matvec_components"] - before["kernel_matvec_components"] == groups_c
     assert after["kernel_block_multi"] - before["kernel_block_multi"] == groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [2, 150, 160, 161])
+@pytest.mark.parametrize("per_column", [False, True])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_weighted_matvec_columns_match_plain(cuda_device, rng, t, per_column, precision):
+    """The weighted matvec's column path (t > 1) against its plain version
+    at ragged m (70), n (301) and d (11): t = 2 (one 128-column block),
+    t = 150 (one ragged 160-column block), t = 160 (the tune's width, one
+    full 160-column block) and t = 161 (two 128-column blocks of 84 and 77
+    columns), with (q,) or per-column (q, t) weights; one launch."""
+    kernels, sigmas = MULTI_CASES["l2+l1"]
+    q = len(kernels)
+    a = _t(rng.standard_normal((70, 11)).astype(np.float32) / 3).to(cuda_device)
+    b = _t(rng.standard_normal((301, 11)).astype(np.float32) / 3).to(cuda_device)
+    v = _t(rng.standard_normal((301, t)).astype(np.float32)).to(cuda_device)
+    w_cols = _t(rng.dirichlet(np.ones(q), size=t).T.astype(np.float32)).to(cuda_device)
+    w = w_cols if per_column else tuple(float(x) for x in rng.dirichlet(np.ones(q)))
+    before = kernel_matvec_multi_cuda.launches
+    got = kernel_matvec_multi_cuda(a, b, v, w, kernels=kernels, sigmas=sigmas, precision=precision)
+    torch.cuda.synchronize()
+    assert kernel_matvec_multi_cuda.launches == before + 1
+    w_ref = w_cols if per_column else torch.tensor(w, device=cuda_device)
+    want = ops.ref.kernel_matvec_multi(a, b, v, sigmas, w_ref, kernels=kernels,
+                                       precision=precision).cpu().numpy()
+    assert got.shape == (70, t)
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
 
 
 @pytest.mark.cuda

@@ -6,7 +6,13 @@
 ``kernel_matvec`` at (50,000 x 10^6, d = 9, t = 1) and ``kernel_block`` at
 (50,000 x 50,000, d = 9), rbf, f32, on the operands of ``chip_smoke.py``'s
 ``main_path_inputs``, and ``kernel_matvec`` for 64 queries against the 10^6
-rows (one block: the small-m prediction case).  Timing is
+rows (one block: the small-m prediction case), and the weighted matvec
+``kernel_matvec_multi`` on the first 20,000 of those rows (rbf + laplacian
++ matern52) at the widths its callers send: the tune's ``matvec_cols`` in
+``chip_smoke.py`` (160 columns), the ``krr_tune`` launcher's default tune
+(120 columns), both with per-column Dirichlet weights from seed 0, and a
+Nystrom sketch of rank 100 with (q,) weights.  Each weighted-matvec time is
+printed beside its bound (``chip_smoke._bound_multi``).  Timing is
 ``chip_smoke._time_ms`` (CUDA events), median of 7 after one warm-up.
 Prints one JSON line.  Whichever ``repro_torch`` is first on ``PYTHONPATH``
 is timed, so two versions are compared by alternating runs within one
@@ -20,6 +26,7 @@ import json
 import pathlib
 import sys
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
@@ -27,6 +34,7 @@ import chip_smoke  # noqa: E402
 
 from repro_torch.kernels.kernel_block import kernel_block_cuda  # noqa: E402
 from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda  # noqa: E402
+from repro_torch.kernels.multi import kernel_matvec_multi_cuda  # noqa: E402
 
 
 def main() -> None:
@@ -44,9 +52,26 @@ def main() -> None:
     mv_ms = median_ms(lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=1.0, precision="f32"))
     blk_ms = median_ms(lambda: kernel_block_cuda(xb, xb, kernel="rbf", sigma=1.0, precision="f32"))
     small_ms = median_ms(lambda: kernel_matvec_cuda(q, x, z, kernel="rbf", sigma=1.0, precision="f32"))
+    ks = chip_smoke.MK_KERNELS
+    xt = x[:chip_smoke.N_TUNE]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cols = {}
+    # (label, columns, per-column weights): chip_smoke's tune, the launcher's
+    # default tune (8 weights x 3 lams x 5 folds) and a rank-100 sketch
+    for label, t, per_column in (("tune160", 160, True), ("launcher120", 120, True),
+                                 ("sketch100", chip_smoke.RANK, False)):
+        w = (torch.from_numpy(np.random.default_rng(0).dirichlet(np.ones(len(ks)), size=t)
+                              .T.astype(np.float32)).cuda() if per_column
+             else tuple(float(x) for x in np.random.default_rng(0).dirichlet(np.ones(len(ks)))))
+        vc = torch.randn((chip_smoke.N_TUNE, t), generator=gen, device="cuda")
+        ms = median_ms(lambda: kernel_matvec_multi_cuda(xt, xt, vc, w, kernels=ks,
+                                                        sigmas=(1.0,) * len(ks), precision="f32"))
+        bound = chip_smoke._bound_multi(chip_smoke.N_TUNE, chip_smoke.N_TUNE, chip_smoke.D, t, ks,
+                                        "cols" if per_column else "matvec")
+        cols[label] = {"t": t, "ms": ms, "bound_ms": bound["bound_ms"]}
     print(json.dumps({"label": args.label, "kernel_matvec_ms": mv_ms, "kernel_block_ms": blk_ms,
-                      "kernel_matvec_m64_ms": small_ms, "card": chip_smoke.nvidia_smi_line()}))
-
+                      "kernel_matvec_m64_ms": small_ms, "kernel_matvec_multi_cols": cols,
+                      "card": chip_smoke.nvidia_smi_line()}))
 
 if __name__ == "__main__":
     main()
