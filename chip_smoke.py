@@ -13,9 +13,12 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                always, so each run prints its ``-Xptxas -v`` lines).
   3. check   — kernel_matvec and kernel_block against their plain PyTorch
                versions on the card: 7 kernels x {f32, bf16} x {1-D v,
-               t = 8} x d in {9, 37} at m = 1000, n = 3001.  Tolerances as
-               the JAX package's kernel tests: f32 rtol 2e-4 / atol 2e-5 x
-               max(1, |ref|max); bf16 rtol 0.05 / atol 0.02 x max(1, |ref|max).
+               t = 8} x d in {9, 37} at m = 1000, n = 3001, then
+               kernel_matvec at t = 1 on the edges of its t = 1 sweep
+               (T1_EDGES: d = 1, 16, 17; n below one staged B tile and one
+               past a multiple of it).  Tolerances as the JAX package's
+               kernel tests: f32 rtol 2e-4 / atol 2e-5 x max(1, |ref|max);
+               bf16 rtol 0.05 / atol 0.02 x max(1, |ref|max).  182 checks.
   3b. check_multi — the three multi-kernel kernels against their plain
                versions, same tolerances and shapes: the combinations
                (rbf, laplacian, matern52) (l2 + l1 families), (linear,
@@ -27,7 +30,10 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                1-D v and on t = 8, and the weighted block; then the weighted
                matvec's column path at t = 160, 161 and 150, with (q,) and
                per-column (q, t) weights, for every combination (q = 9
-               included).
+               included); the weighted matvec at t = 1 with a device (q, 1)
+               weight column on v (n, 1), and on T1_EDGES.  264 checks.
+  3c. determinism — two launches of each t = 1 kernel (kernel_matvec, the
+               weighted matvec) at the solve's G_B shape are bitwise equal.
   4. solve   — the main path through ``solver_api.solve("askotch")`` at the
                paper's taxi configuration (d = 9, rbf, sigma = 1,
                lam_unscaled = 2e-7, b = 50,000, r = 100, f32), with n cut
@@ -55,10 +61,13 @@ Phases, each printing its own JSON line; any failure exits non-zero:
   7. time    — each kernel at the main path's shapes (CUDA events, median
                of 5 after warm-up) beside its plain version and its bound,
                with the kernel's result held against the plain one there;
-               also kernel_matvec for 64 queries (the small-m case), and
-               the multi-kernel kernels at the tune's, the refit's and the
-               prediction's shapes.  The kernels line has one row per
-               (kernel, path shape), each with the launches of that path.
+               also kernel_matvec for the 10^4 prediction queries and for
+               64 (the small-m case), and the multi-kernel kernels at the
+               tune's, the refit's and the prediction's shapes; the two
+               t = 1 G_B rows carry the special-function floor
+               (``sfu_floor_ms``) beside the bound.  The kernels line has
+               one row per (kernel, path shape), each with the launches of
+               that path.
   8. launch  — ``python -m repro_torch.launch.krr_solve --method askotch
                --iters 50`` and ``python -m repro_torch.launch.krr_tune
                --kernels rbf,laplacian,matern52 --n 4000`` on cuda; their
@@ -93,6 +102,12 @@ OUT_DIR = ROOT / "chiprun_out"
 # cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+# special-function results a second (ex2, sqrt): 16 a clock on each of the
+# 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper white paper), 1/8 of
+# the f32 rate; a floor beside the bound, which counts them as operations
+SFU_RESULTS_S = 132 * 16 * 1.98e9
+# special-function operations a pair of each kernel map on the t = 1 sweep
+SFU_OPS = {"rbf": 1, "laplacian": 1, "matern52": 2}
 
 # the paper's taxi configuration (src/repro/configs/askotch_krr.py), n cut
 N_TRAIN, N_TEST, D = 1_000_000, 10_000, 9
@@ -206,9 +221,23 @@ def _ptxas_summary(log: str) -> dict:
     smem = [int(x) for x in re.findall(r"(\d+) bytes smem", log)]
     spill_st = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))
     spill_ld = sum(int(x) for x in re.findall(r"(\d+) bytes spill loads", log))
+    # per kernel template (the csrc entry functions are the templates
+    # *_kernel and pack_b): its instantiations' registers, spills, static smem
+    by_kernel: dict = {}
+    for m in re.finditer(r"Function properties for (\w+)\n.*?(\d+) bytes spill stores, (\d+) bytes "
+                         r"spill loads\n.*?Used (\d+) registers([^\n]*)", log, flags=re.S):
+        name = re.search(r"[a-z]\w*?_kernel(?=I)|pack_b", m.group(1))
+        rec = by_kernel.setdefault(name.group() if name else m.group(1), {
+            "entries": 0, "registers": [999, 0], "spill_bytes": 0, "smem_bytes_max": 0})
+        r = int(m.group(4))
+        rec["entries"] += 1
+        rec["registers"] = [min(rec["registers"][0], r), max(rec["registers"][1], r)]
+        rec["spill_bytes"] += int(m.group(2)) + int(m.group(3))
+        sm = re.search(r"(\d+) bytes smem", m.group(5))
+        rec["smem_bytes_max"] = max(rec["smem_bytes_max"], int(sm.group(1)) if sm else 0)
     return {"entries": len(regs), "registers_min": min(regs, default=None),
             "registers_max": max(regs, default=None), "smem_bytes_max": max(smem, default=None),
-            "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld}
+            "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld, "by_kernel": by_kernel}
 
 
 LIBS = ("kernel_matvec", "kernel_block", "kernel_multi")
@@ -284,8 +313,57 @@ def phase_check() -> dict:
                 if not ok or got.shape != want.shape:
                     fail(f"kernel_block {kern} {prec} d={d}: err {err}")
                 worst["kernel_block"] = max(worst["kernel_block"], err)
-    emit({"phase": "check", "m": m, "n": n, "sigma": sigma, "worst_abs_err": worst})
+    # the t = 1 sweep's edges: d = 1, the register cap and one above it, and
+    # n below one staged B tile and one past a multiple of it
+    gen_edge = torch.Generator().manual_seed(7)
+    for d, n_e in T1_EDGES:
+        a = (torch.randn((m, d), generator=gen_edge) / math.sqrt(d)).cuda()
+        b = (torch.randn((n_e, d), generator=gen_edge) / math.sqrt(d)).cuda()
+        a[3] = 0.0
+        v = torch.randn((n_e,), generator=gen_edge).cuda()
+        for kern in KERNEL_NAMES:
+            for prec in ("f32", "bf16"):
+                want = ref.kernel_matvec(a, b, v, sigma, kernel=kern, precision=prec)
+                got = kernel_matvec_cuda(a, b, v, kernel=kern, sigma=sigma, precision=prec)
+                torch.cuda.synchronize()
+                err, ok = _err(got, want, prec)
+                emit({"check": "kernel_matvec", "kernel": kern, "precision": prec,
+                      "d": d, "n": n_e, "t": 1, "max_abs_err": err, "ok": ok})
+                if not ok or got.shape != want.shape:
+                    fail(f"kernel_matvec {kern} {prec} d={d} n={n_e} t=1: err {err}")
+                worst["kernel_matvec"] = max(worst["kernel_matvec"], err)
+    emit({"phase": "check", "m": m, "n": n, "sigma": sigma, "t1_edges": T1_EDGES,
+          "worst_abs_err": worst})
     return worst
+
+
+def phase_check_determinism() -> None:
+    """Two launches of each redesigned t = 1 kernel at the solve's G_B shape
+    (50,000 x 10^6, d = 9) give bitwise equal results."""
+    import torch
+
+    from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda
+    from repro_torch.kernels.multi import kernel_matvec_multi_cuda
+
+    x, xb, z = main_path_inputs()
+    w = (0.5, 0.2, 0.3)
+    runs = {
+        "kernel_matvec": lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=SIGMA,
+                                                    precision="f32"),
+        "kernel_matvec_multi": lambda: kernel_matvec_multi_cuda(
+            xb, x, z, w, kernels=MK_KERNELS, sigmas=(SIGMA,) * len(MK_KERNELS), precision="f32"),
+    }
+    for name, fn in runs.items():
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(first, second))
+        emit({"check": "determinism", "kernel": name, "shape": [BLOCK, N_TRAIN, D, 1],
+              "bitwise_equal": same})
+        if not same:
+            fail(f"{name}: two launches at the G_B shape differ "
+                 f"(max {float((first - second).abs().max())})")
+    del x, xb, z
+    torch.cuda.empty_cache()
 
 
 #: the combinations check_multi holds against the plain versions: l2 + l1
@@ -298,6 +376,13 @@ MULTI_CASES = [
     (("rbf", "laplacian", "matern52", "linear", "polynomial", "sigmoid", "cosine",
       "rbf", "laplacian"), (1.5, 0.8, 2.2, 1.5, 1.1, 2.0, 1.0, 0.6, 3.0)),
 ]
+
+
+#: (d, n) edges of the t = 1 sweep, held at t = 1 with m = 1000: d = 1, the
+#: register cap (16) and one above it (the slab loop), then n below one
+#: staged B tile and one past a multiple of it, for the register path (256
+#: rows a tile, d = 9) and the slab loop (64 rows a tile, d = 37)
+T1_EDGES = [(1, 3001), (16, 3001), (17, 3001), (9, 100), (9, 257), (37, 50), (37, 65)]
 
 
 #: the widths at which check_multi also holds the weighted matvec's column
@@ -381,8 +466,36 @@ def phase_check_multi() -> dict:
                         got = kernel_matvec_multi_cuda(a, b, v_wide[tw], wts, kernels=kernels,
                                                        sigmas=sigmas, precision=prec)
                         check("kernel_matvec_multi", got, want, prec, **case, operands=label)
-    emit({"phase": "check_multi", "m": m, "n": n, "t": [t, *WIDE_T], "checks": n_checks,
-          "worst_abs_err": worst})
+        # t = 1 with a device (q, 1) weight column and v of shape (n, 1)
+        for kernels, sigmas in MULTI_CASES:
+            q = len(kernels)
+            w_col = torch.from_numpy(rng.dirichlet(np.ones(q))[:, None].astype(np.float32)).cuda()
+            for prec in ("f32", "bf16"):
+                want = ref.kernel_matvec_multi(a, b, v1[:, None], sigmas, w_col, kernels=kernels,
+                                               precision=prec)
+                got = kernel_matvec_multi_cuda(a, b, v1[:, None], w_col, kernels=kernels,
+                                               sigmas=sigmas, precision=prec)
+                check("kernel_matvec_multi", got, want, prec, kernels=list(kernels), d=d,
+                      operands="w(q,1) v(n,1)")
+    # the t = 1 sweep's edges (T1_EDGES), (q,) weights on a 1-D v
+    gen_edge = torch.Generator().manual_seed(8)
+    rng_edge = np.random.default_rng(8)
+    for d, n_e in T1_EDGES:
+        a = (torch.randn((m, d), generator=gen_edge) / math.sqrt(d)).cuda()
+        b = (torch.randn((n_e, d), generator=gen_edge) / math.sqrt(d)).cuda()
+        a[3] = 0.0
+        v1 = torch.randn((n_e,), generator=gen_edge).cuda()
+        for kernels, sigmas in MULTI_CASES:
+            w = tuple(float(x) for x in rng_edge.dirichlet(np.ones(len(kernels))))
+            for prec in ("f32", "bf16"):
+                want = ref.kernel_matvec_multi(a, b, v1, sigmas, torch.tensor(w, device="cuda"),
+                                               kernels=kernels, precision=prec)
+                got = kernel_matvec_multi_cuda(a, b, v1, w, kernels=kernels, sigmas=sigmas,
+                                               precision=prec)
+                check("kernel_matvec_multi", got, want, prec, kernels=list(kernels), d=d, n=n_e,
+                      operands="w(q,) v(n,)")
+    emit({"phase": "check_multi", "m": m, "n": n, "t": [t, *WIDE_T], "t1_edges": T1_EDGES,
+          "checks": n_checks, "worst_abs_err": worst})
     return worst
 
 
@@ -669,6 +782,11 @@ def _bound_multi(m: int, n: int, d: int, t: int, kernels, kind: str) -> dict:
     return _bound_of(flops, nbytes)
 
 
+def _sfu_floor_ms(m: int, n: int, kernels) -> float:
+    """Least time of the special-function unit for an (m, n) t = 1 sweep."""
+    return 1e3 * m * n * sum(SFU_OPS[k] for k in kernels) / SFU_RESULTS_S
+
+
 def main_path_inputs():
     """The operands one iteration of the main path gives the kernels:
     ``taxi_like`` training rows on the card, a block of BLOCK of them, and
@@ -720,7 +838,8 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc) -> list[dict
          **_time_case(lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=SIGMA,
                                                  precision="f32"),
                       lambda: ref.kernel_matvec(xb, x, z, SIGMA, kernel="rbf"),
-                      _bound(BLOCK, N_TRAIN, D, 1))},
+                      _bound(BLOCK, N_TRAIN, D, 1)),
+         "sfu_floor_ms": _sfu_floor_ms(BLOCK, N_TRAIN, ("rbf",))},
         {"name": "kernel_block", "case": "solve K_BB", "route": "cuda",
          "source": "src/repro_torch/csrc/kernel_block.cu",
          "replaces": "src/repro/kernels/kernel_block.py:34",
@@ -731,8 +850,15 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc) -> list[dict
                       lambda: ref.kernel_block(xb, xb, SIGMA, kernel="rbf"),
                       _bound(BLOCK, BLOCK, D, None))},
     ]
-    # the small-m limit: SMALL_M queries fill one row tile, so one SM works
-    extra = [{"name": "kernel_matvec", "case": "small_m", "shape": [SMALL_M, N_TRAIN, D, 1],
+    # the solve's prediction (10^4 queries), and the small-m limit: SMALL_M
+    # queries fill one row tile, so one SM works
+    xq = xb[:N_TEST].contiguous()
+    extra = [{"name": "kernel_matvec", "case": "solve prediction", "shape": [N_TEST, N_TRAIN, D, 1],
+              **_time_case(lambda: kernel_matvec_cuda(xq, x, z, kernel="rbf", sigma=SIGMA,
+                                                      precision="f32"),
+                           lambda: ref.kernel_matvec(xq, x, z, SIGMA, kernel="rbf"),
+                           _bound(N_TEST, N_TRAIN, D, 1))},
+             {"name": "kernel_matvec", "case": "small_m", "shape": [SMALL_M, N_TRAIN, D, 1],
               **_time_case(lambda: kernel_matvec_cuda(q, x, z, kernel="rbf", sigma=SIGMA,
                                                       precision="f32"),
                            lambda: ref.kernel_matvec(q, x, z, SIGMA, kernel="rbf"),
@@ -764,7 +890,8 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc) -> list[dict
          **_time_case(lambda: kernel_matvec_multi_cuda(xb, x, z, weights, kernels=ks, sigmas=sg,
                                                        precision="f32"),
                       lambda: ref.kernel_matvec_multi(xb, x, z, sg, w_t, kernels=ks),
-                      _bound_multi(BLOCK, N_TRAIN, D, 1, ks, "matvec"))},
+                      _bound_multi(BLOCK, N_TRAIN, D, 1, ks, "matvec")),
+         "sfu_floor_ms": _sfu_floor_ms(BLOCK, N_TRAIN, ks)},
         {"name": "kernel_matvec_components", "case": "tune sketch_components", **multi,
          "replaces": "src/repro/kernels/multi.py:187",
          "launches": launches["tune"]["kernel_matvec_components"],
@@ -782,7 +909,6 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc) -> list[dict
                       lambda: ref.kernel_block_multi(xb, xb, sg, weights, kernels=ks),
                       _bound_multi(BLOCK, BLOCK, D, 0, ks, "block"))},
     ]
-    xq = xb[:N_TEST].contiguous()
     extra += [
         {"name": "kernel_matvec_multi", "case": "refit prediction",
          "shape": [N_TEST, N_TRAIN, D, 1],
@@ -849,6 +975,7 @@ def main() -> int:
     phase_build()
     phase_check()
     phase_check_multi()
+    phase_check_determinism()
     solve_rec = phase_solve()
     tune_rec, tune_result = phase_tune()
     refit_rec = phase_refit(tune_result.best)

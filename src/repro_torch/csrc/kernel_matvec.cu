@@ -8,28 +8,35 @@
 //
 // Bound on the H100: operations.  At the main path's shape (m = 50,000,
 // n = 10^6, d = 9, t = 1) the work is ~1.2e12 f32 operations plus 5e10 exp,
-// while the bytes (B is 36 MB) are negligible.  The design therefore keeps
-// every pair's work in registers and shared memory, and keeps the SMs from
-// waiting on device memory:
-//   * one block per 64-row tile of A (grid.y walks t in chunks of TC
-//     columns), A staged once; the block loops over all of B and V in
-//     64-row tiles, d walked in 32-wide slabs;
+// while the bytes (B is 36 MB) are negligible.  The time is in issued
+// instructions per pair, not in memory (PERF.md has the measurements).
+//
+// t == 1 (G_B, the residual pass, the prediction) runs on the t = 1 sweep of
+// sweep_t1.cuh: B packed once a launch with its norms and v ([b, ||b||^2, v]
+// rows, zero past n), staged by cp.async in 256-row tiles, the block's 64
+// rows of A in registers (two a lane), each B row a broadcast read by a
+// whole warp, whole row sums per thread added over the 8 warps in a fixed
+// order.  A pair of rbf costs d FMAs (the dot product, started at
+// -||a||^2 / 2), one FMA and one min for the scaled, clamped exponent (the
+// pack stores rs ||b||^2, rs = -log2(e) / (2 sigma^2), so the exponent is
+// rs ||b||^2 - 2 rs acc and exp(x) = ex2(x log2 e) costs nothing more), the
+// ex2 (one special-function operation a pair) and one FMA with v.
+//
+// t > 1 runs on the first port's loop (kernel_matvec_kernel below):
+//   * one block per 64-row tile of A and TC = 8 columns of V (grid.y), A
+//     staged once; the block loops over all of B and V in 64-row tiles, d
+//     walked in 32-wide slabs;
 //   * the next slab of B (and V) is loaded into registers while the current
 //     one is computed, then written to shared memory, feature-major, so
 //     each thread reads its 4 rows and 4 columns of a feature as two float4
 //     per 16 fused multiply-adds;
 //   * each thread owns a 4 x 4 register tile of the distance and, for its 4
 //     rows, TC output accumulators in registers;
-//   * slab and tile counters are carried, not divided (a 64-bit division
-//     per slab cost ~10% of the kernel), and the per-pair epilogue is kept
-//     short: the map's divisions are per-launch constants, exp is one
-//     ex2.approx, and for rbf the scale is folded into the norms so a pair
-//     costs one add, one fma, one min and the exponential;
+//   * slab and tile counters are carried, not divided, and the map's
+//     divisions are per-launch constants;
 //   * the 16 threads sharing a row reduce their partial sums with a fixed
-//     butterfly of warp shuffles at the end: no atomics, so the result is
-//     the same from run to run.
-// The time is in issued instructions per pair, not in memory: PERF.md has
-// the measurements that led here.
+//     butterfly of warp shuffles at the end.
+// Both are deterministic: no atomics.
 // Known limit: a small m (a few prediction queries) gives fewer blocks than
 // the 132 SMs; splitting n across blocks is later work.
 //
@@ -37,11 +44,15 @@
 // its product with V (the TPU kernel's bf16 matmul operand); the product of
 // two bf16 values is exact in f32 and accumulates in f32.
 #include "kernel_common.cuh"
+#include "sweep_t1.cuh"
 
 using namespace pk;
 
-template <typename T, int KID, int TC>
-__global__ void __launch_bounds__(THREADS, TC == 1 ? 3 : 1)
+// t > 1: a block takes TC columns of V (grid.y chunks).
+constexpr int TC = 8;
+
+template <typename T, int KID>
+__global__ void __launch_bounds__(THREADS, 1)
 kernel_matvec_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ v,
                      float* __restrict__ out, int64_t m, int64_t n, int d, int t, float sigma) {
   constexpr int FAM = family_of(KID);
@@ -136,26 +147,103 @@ kernel_matvec_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* 
     }
 }
 
+// Blocks an SM must hold: three (80 registers) for the register path at 9
+// feature slots; two (128 registers) where the 16-wide A tile, the slab loop
+// or cosine's divisions would spill at 80.
+__host__ __device__ constexpr int t1_min_blocks(int kid, int nf, bool slab) {
+  return nf == 9 && !slab && kid != K_COSINE ? 3 : 2;
+}
+
+// out (m) = K(A, B) @ v, t == 1, on the t = 1 sweep over the packed B (bp:
+// P floats a row, n_pad rows).  One special-function operation a pair for
+// rbf and laplacian, two for matern52 (sqrt.approx and ex2).
+template <typename T, int KID, int NF, bool SLAB>
+__global__ void __launch_bounds__(t1::THREADS, t1_min_blocks(KID, NF, SLAB))
+kernel_matvec_t1_kernel(const T* __restrict__ a, const float* __restrict__ bp,
+                        float* __restrict__ out, int64_t m, int64_t n_pad, int d, int P,
+                        float sigma) {
+  constexpr int FAM = family_of(KID);
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ __align__(16) float t1_smem[];
+  const MapConst mc = map_const(sigma);
+  const float m2rs = -2.0f * mc.rbf_scale;
+  float o[t1::R] = {};
+  t1::sweep<NF, SLAB, FAM != F_L1, FAM == F_L1>(
+      a, bp, m, d, P, 0, n_pad, FAM == F_L2, t1_smem,
+      [&](float (&acc)[t1::R][t1::J], float (&acc1)[t1::R][t1::J], const float (&a2)[t1::R],
+          const float (&b2)[t1::J], const float (&vv)[t1::J]) {
+#pragma unroll
+        for (int j = 0; j < t1::J; ++j) {
+#pragma unroll
+          for (int r = 0; r < t1::R; ++r) {
+            float kv;
+            if (KID == K_RBF) {
+              // exp(-max(||a - b||^2, 0) / (2 sigma^2)) as ex2(rs ||a - b||^2),
+              // rs = -log2(e) / (2 sigma^2) < 0: acc = a.b - a2 / 2 and the
+              // packed norm is rs b2, so rs ||a - b||^2 = rs b2 - 2 rs acc
+              kv = ex2(fminf(fmaf(acc[r][j], m2rs, b2[j]), 0.0f));
+            } else {
+              const float base = FAM == F_L2   ? fmaxf(fmaf(-2.0f, acc[r][j], b2[j]), 0.0f)
+                               : FAM == F_L1   ? acc1[r][j]
+                                               : base_value<FAM>(acc[r][j], a2[r], b2[j]);
+              kv = t1::kernel_map_t1<KID>(base, mc);
+            }
+            if (BF16) kv = round_bf16(kv);
+            o[r] = fmaf(kv, vv[j], o[r]);
+          }
+        }
+      });
+  t1::write_rows(o, t1_smem + t1::ring_floats(NF, SLAB), out, m, false);
+}
+
+template <typename T, int KID>
+static cudaError_t launch_t1(const T* a, const T* b, const T* v, float* out, int64_t m, int64_t n,
+                             int d, float sigma, float* scratch, cudaStream_t s) {
+  // rbf reads its norms scaled by rs = -log2(e) / (2 sigma^2), as map_const
+  const float s2 = sigma * sigma;
+  const float norm_scale = KID == K_RBF ? -kLog2e / (2.0f * s2) : 1.0f;
+  cudaError_t err = t1::launch_pack(b, v, scratch, n, d, norm_scale, s);
+  if (err != cudaSuccess) return err;
+  const t1::PackShape ps = t1::pack_shape(n, d);
+  const unsigned blocks = (unsigned)((m + t1::TM - 1) / t1::TM);
+#define PK_T1(NF, SLAB)                                                                      \
+  err = t1::launch_sweep(kernel_matvec_t1_kernel<T, KID, NF, SLAB>, blocks,                  \
+                         t1::smem_bytes(NF, SLAB), s, a, (const float*)scratch, out, m,      \
+                         ps.rows, d, ps.stride, sigma)
+  PK_T1_DISPATCH_NF(d, PK_T1)
+#undef PK_T1
+  return err;
+}
+
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // bf16 != 0 reads A, B and V as __nv_bfloat16, else as float.  d, t >= 1.
+// t == 1 needs `scratch`: sweep_t1_scratch_floats(n, d) floats of device
+// memory (unused for t > 1).
 extern "C" int kernel_matvec_launch(const void* a, const void* b, const void* v, void* out,
                                     long long m, long long n, int d, int t, float sigma,
-                                    int kernel_id, int bf16, void* stream) {
+                                    int kernel_id, int bf16, void* scratch, void* stream) {
   if (m < 0 || n < 0 || d < 1 || t < 1) return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
-  constexpr int TCW = 8;  // column chunk for t > 1
-  const int tcols = t == 1 ? 1 : TCW;
-  const int gy = (t + tcols - 1) / tcols;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (t == 1) {
+    cudaError_t err = cudaSuccess;
+#define PK_LAUNCH(T, KID)                                                                  \
+  err = launch_t1<T, KID>((const T*)a, (const T*)b, (const T*)v, (float*)out, m, n, d,     \
+                          sigma, (float*)scratch, s)
+    if (bf16) {
+      PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, __nv_bfloat16)
+    } else {
+      PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, float)
+    }
+#undef PK_LAUNCH
+    return (int)err;
+  }
+  const int gy = (t + TC - 1) / TC;
   if (gy > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((m + TM - 1) / TM), (unsigned)gy);
-  cudaStream_t s = (cudaStream_t)stream;
 #define PK_LAUNCH(T, KID)                                                                   \
-  if (t == 1)                                                                               \
-    kernel_matvec_kernel<T, KID, 1><<<grid, THREADS, 0, s>>>(                               \
-        (const T*)a, (const T*)b, (const T*)v, (float*)out, m, n, d, t, sigma);             \
-  else                                                                                      \
-    kernel_matvec_kernel<T, KID, TCW><<<grid, THREADS, 0, s>>>(                             \
-        (const T*)a, (const T*)b, (const T*)v, (float*)out, m, n, d, t, sigma)
+  kernel_matvec_kernel<T, KID><<<grid, THREADS, 0, s>>>(                                    \
+      (const T*)a, (const T*)b, (const T*)v, (float*)out, m, n, d, t, sigma)
   if (bf16) {
     PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, __nv_bfloat16)
   } else {

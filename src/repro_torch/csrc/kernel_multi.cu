@@ -10,9 +10,7 @@
 //   * kernel_block_multi_launch        <- kernel_block_multi_pallas
 //     out = sum_i w_i K_i(A, B) materialised, static weights.
 //
-// Design.  The tiling, staging, prefetch and shuffle reduction are those of
-// kernel_matvec.cu / kernel_block.cu (kernel_common.cuh), and one sweep over
-// the B tiles (sweep_b) serves all three kernels.  What is new:
+// Design.  Common to the three kernels:
 //   * Families.  The base tile is computed once per family present, as the
 //     TPU kernel did: l2, dot and cos all need only sum a.b (plus the row
 //     norms), so one accumulator serves them; l1 needs its own |a - b|
@@ -24,14 +22,28 @@
 //     copies them, with the map constants, into shared memory.  The wrapper
 //     splits a larger q into groups and sums (matvec, block: a launch with
 //     `accumulate` adds to the output) or concatenates (components) them.
-//     The map is chosen per kernel by a switch that is uniform across the
-//     block, once per 4 x 4 register tile.
 //   * Per-column weights.  V is pre-scaled per kernel: w_ic (K_i v)[:, c]
 //     == (K_i (v * w_i))[:, c], so one accumulator per (row, column) serves
 //     all q kernels.
+// The stacked matvec and the weighted block run on sweep_b below, the 64 x 64
+// tiles and 16-lane shuffle reduction of the first port (kernel_common.cuh),
+// the map chosen per kernel by a switch uniform across the block, once per
+// 4 x 4 register tile.
 //
 // The weighted matvec has two paths.  t == 1 (the refit's G_B, residual and
-// prediction) runs on sweep_b with the 64 x 64 tiles of kernel_matvec.cu.
+// prediction) runs on the t = 1 sweep it shares with kernel_matvec.cu
+// (sweep_t1.cuh: B packed once a launch with its norms and v, 256-row tiles
+// staged by cp.async, the block's 64 rows of A in registers, whole row sums
+// per thread).  Per 16-pair group a thread forms the family sums, then, per
+// kernel, reads its id, map constants and weight once into registers, takes
+// the switch on the id once and accumulates K_k * (v w_k) over the 16 pairs;
+// with no dot or cos kernel the clamped l2 distance is formed once for all
+// l2 kernels.  Bound: operations.  At the refit's G_B (rbf + laplacian +
+// matern52, d = 9) a pair costs 2d operations for the l1 sum, d for the dot
+// product and about 20 for three maps and three products, and four
+// special-function operations (three ex2, one sqrt.approx), whose 16 results
+// a clock an SM set a floor of ~48 ms at 5e10 pairs.
+//
 // t > 1 (the tune's matvec_cols, 160 columns) runs on the column path,
 // kernel_matvec_cols_kernel:
 //   * Kernel values once for all columns.  The TPU kernel takes all of V's
@@ -66,10 +78,12 @@
 // already bf16); the block rounds only the operands and keeps the weighted
 // sum of f32 tiles in f32.
 //
-// Deterministic: no atomics; the 16 partial sums of a row are reduced by a
-// fixed butterfly of shuffles (the column path needs none: a thread owns
-// whole sums), and group launches are ordered on the stream.
+// Deterministic: no atomics; sweep_b reduces the 16 partial sums of a row by
+// a fixed butterfly of shuffles, the t = 1 sweep adds its 8 warps' row sums
+// in warp order, the column path needs neither (a thread owns whole sums),
+// and group launches are ordered on the stream.
 #include "kernel_common.cuh"
+#include "sweep_t1.cuh"
 
 using namespace pk;
 
@@ -136,7 +150,7 @@ __device__ __forceinline__ void tile_map(int kid, float (&kv)[R][J], const float
   }
 }
 
-// The sweep shared by the three kernels: for each 64-row tile of B in
+// The sweep of the stacked matvec and the weighted block: for each 64-row tile of B in
 // [j_begin, j_end) the family accumulators of the thread's 4 x 4 pairs,
 // then `epilogue(j0, acc, acc1, av, bv, cols)`, with V of the tile (columns
 // [c0, c0 + tc)) staged in Vs when TC > 0; the block kernel has no V (TC = 0).
@@ -218,66 +232,94 @@ __device__ __forceinline__ void round_tile(float (&kv)[RM][JN]) {
     for (int j = 0; j < JN; ++j) kv[i][j] = round_bf16(kv[i][j]);
 }
 
-// out (m) (+)= (sum_i w_i K_i(A, B)) @ v, t == 1; w: a (q, 1) f32 column in
-// device memory, or null for the static (q,) weights of `spec`.
-template <typename T, bool DOTACC, bool L1ACC>
-__global__ void __launch_bounds__(THREADS)
-kernel_matvec_multi_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                           const T* __restrict__ v, const float* __restrict__ w,
-                           float* __restrict__ out, int64_t m, int64_t n, int d,
-                           MultiSpec spec, bool accumulate) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  __shared__ __align__(16) float As[DC][TM];
-  __shared__ __align__(16) float Bs[DC][TN];
-  __shared__ __align__(16) float Vs[1][TN];
-  __shared__ __align__(16) float a2[TM];
-  __shared__ __align__(16) float b2[TN];
-  __shared__ MultiTable tab;
-  __shared__ float Ws[QMAX];
-  const int rg = threadIdx.x / LANES, lane = threadIdx.x % LANES;
-  const int q = spec.q;
+// One kernel's share of a group of the t = 1 sweep: o[r] += K_KID(a_r, b_j)
+// * vw[j] over the thread's R x J pairs, vw = v * w_k (bf16: each K value
+// and each vw rounded to bf16, the TPU kernel's operands).  PRE: acc holds
+// the clamped l2 distance already (no dot / cos kernel in the launch).
+template <int KID, bool PRE, bool BF16>
+__device__ __forceinline__ void weighted_group(float (&o)[t1::R], const float (&acc)[t1::R][t1::J],
+                                               const float (&acc1)[t1::R][t1::J],
+                                               const float (&a2)[t1::R], const float (&b2)[t1::J],
+                                               const float (&vw)[t1::J], const MapConst& mc) {
+  constexpr int FAM = family_of(KID);
+#pragma unroll
+  for (int j = 0; j < t1::J; ++j)
+#pragma unroll
+    for (int r = 0; r < t1::R; ++r) {
+      const float base = FAM == F_L2 ? (PRE ? acc[r][j]
+                                            : fmaxf(fmaf(-2.0f, acc[r][j], a2[r] + b2[j]), 0.0f))
+                       : FAM == F_L1 ? acc1[r][j]
+                                     : base_value<FAM>(acc[r][j], a2[r], b2[j]);
+      float kv = t1::kernel_map_t1<KID>(base, mc);
+      if (BF16) kv = round_bf16(kv);
+      o[r] = fmaf(kv, vw[j], o[r]);
+    }
+}
 
+// out (m) (+)= (sum_i w_i K_i(A, B)) @ v, t == 1, on the t = 1 sweep over the
+// packed B (bp: P floats a row, n_pad rows); w: a (q, 1) f32 column in
+// device memory, or null for the static (q,) weights of `spec`.  Per group
+// of 16 pairs a thread: the kernel's id, map constants and weight are read
+// once into registers and the switch on the id taken once; with no dot or
+// cos kernel (l2_pre) the dot accumulator starts at -||a||^2 / 2 and the
+// clamped l2 distance max(b2 - 2 acc, 0) is formed once for all l2 kernels.
+// Special-function operations a pair: one ex2 per rbf and laplacian, an ex2
+// and a sqrt.approx per matern52 (four for the refit's rbf + laplacian +
+// matern52).
+template <typename T, bool DOTACC, bool L1ACC, int NF, bool SLAB>
+__global__ void __launch_bounds__(t1::THREADS, 2)
+kernel_matvec_multi_kernel(const T* __restrict__ a, const float* __restrict__ bp,
+                           const float* __restrict__ w, float* __restrict__ out, int64_t m,
+                           int64_t n_pad, int d, int P, MultiSpec spec, bool l2_pre,
+                           bool accumulate) {
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ __align__(16) float t1_smem[];
+  __shared__ MultiTable tab;
+  const int q = spec.q;
   load_table(tab, spec);
+  __syncthreads();
   if (threadIdx.x < QMAX) {
     const int i = threadIdx.x;
-    Ws[i] = i < q ? (w ? w[i] : spec.w[i]) : 0.0f;
+    if (w && i < q) tab.w[i] = w[i];
   }
   __syncthreads();
 
-  float o[RM][1] = {};
-  sweep_b<T, DOTACC, L1ACC, 1>(
-      a, b, v, m, n, d, 1, 0, 1, 0, n, As, Bs, Vs, a2, b2,
-      [&](int64_t, const float (&acc)[RM][JN], const float (&acc1)[RM][JN],
-          const float (&av)[RM], const float (&bv)[JN], int cols) {
+  float o[t1::R] = {};
+  t1::sweep<NF, SLAB, DOTACC, L1ACC>(
+      a, bp, m, d, P, 0, n_pad, l2_pre, t1_smem,
+      [&](float (&acc)[t1::R][t1::J], float (&acc1)[t1::R][t1::J], const float (&a2)[t1::R],
+          const float (&b2)[t1::J], const float (&vv)[t1::J]) {
+        if (DOTACC && l2_pre)
+#pragma unroll
+          for (int r = 0; r < t1::R; ++r)
+#pragma unroll
+            for (int j = 0; j < t1::J; ++j)
+              acc[r][j] = fmaxf(fmaf(-2.0f, acc[r][j], b2[j]), 0.0f);  // folded
 #pragma unroll 1
         for (int k = 0; k < q; ++k) {
-          float kv[RM][JN];
-          tile_map(tab.kid[k], kv, acc, acc1, av, bv, tab.mc[k]);
-          mask_cols(kv, lane, cols);
-          if (BF16) round_tile(kv);
-          const float4 v4 = *reinterpret_cast<const float4*>(&Vs[0][lane * JN]);
-          const float wk = Ws[k];
-          float vw[JN] = {v4.x * wk, v4.y * wk, v4.z * wk, v4.w * wk};
-          if (BF16) {
+          const MapConst mc = tab.mc[k];
+          const float wk = tab.w[k];
+          float vw[t1::J];
 #pragma unroll
-            for (int j = 0; j < JN; ++j) vw[j] = round_bf16(vw[j]);
+          for (int j = 0; j < t1::J; ++j) vw[j] = BF16 ? round_bf16(vv[j] * wk) : vv[j] * wk;
+#define PK_GROUP(KID)                                                              \
+  if (l2_pre)                                                                      \
+    weighted_group<KID, true, BF16>(o, acc, acc1, a2, b2, vw, mc);                 \
+  else                                                                             \
+    weighted_group<KID, false, BF16>(o, acc, acc1, a2, b2, vw, mc)
+          switch (tab.kid[k]) {
+            case K_RBF: PK_GROUP(K_RBF); break;
+            case K_LAPLACIAN: weighted_group<K_LAPLACIAN, false, BF16>(o, acc, acc1, a2, b2, vw, mc); break;
+            case K_MATERN52: PK_GROUP(K_MATERN52); break;
+            case K_LINEAR: weighted_group<K_LINEAR, false, BF16>(o, acc, acc1, a2, b2, vw, mc); break;
+            case K_POLYNOMIAL: weighted_group<K_POLYNOMIAL, false, BF16>(o, acc, acc1, a2, b2, vw, mc); break;
+            case K_SIGMOID: weighted_group<K_SIGMOID, false, BF16>(o, acc, acc1, a2, b2, vw, mc); break;
+            default: weighted_group<K_COSINE, false, BF16>(o, acc, acc1, a2, b2, vw, mc); break;
           }
-#pragma unroll
-          for (int i = 0; i < RM; ++i)
-            o[i][0] = fmaf(kv[i][3], vw[3], fmaf(kv[i][2], vw[2],
-                      fmaf(kv[i][1], vw[1], fmaf(kv[i][0], vw[0], o[i][0]))));
+#undef PK_GROUP
         }
       });
-
-  reduce_lanes(o);
-  if (lane == 0) {
-    const int64_t r0 = (int64_t)blockIdx.x * TM;
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int64_t row = r0 + rg * RM + i;
-      if (row < m) out[row] = accumulate ? out[row] + o[i][0] : o[i][0];
-    }
-  }
+  t1::write_rows(o, t1_smem + t1::ring_floats(NF, SLAB), out, m, accumulate);
 }
 
 // ---------------------------------------------------------------------------
@@ -712,31 +754,53 @@ static bool make_spec(MultiSpec& s, int q, int qmax, const int* kids, const floa
     LAUNCH(T, true, false);             \
   }
 
+template <typename T, bool DA, bool LA>
+static cudaError_t launch_multi_t1(const T* a, const T* b, const T* v, const float* w, float* out,
+                                   int64_t m, int64_t n, int d, const MultiSpec& spec,
+                                   bool l2_pre, bool accumulate, float* scratch, cudaStream_t s) {
+  cudaError_t err = t1::launch_pack(b, v, scratch, n, d, 1.0f, s);
+  if (err != cudaSuccess) return err;
+  const t1::PackShape ps = t1::pack_shape(n, d);
+  const unsigned blocks = (unsigned)((m + t1::TM - 1) / t1::TM);
+#define PK_T1(NF, SLAB)                                                                      \
+  err = t1::launch_sweep(kernel_matvec_multi_kernel<T, DA, LA, NF, SLAB>, blocks,            \
+                         t1::smem_bytes(NF, SLAB), s, a, (const float*)scratch, w, out, m,   \
+                         ps.rows, d, ps.stride, spec, l2_pre, accumulate)
+  PK_T1_DISPATCH_NF(d, PK_T1)
+#undef PK_T1
+  return err;
+}
+
 // t == 1: w is a device (q, 1) f32 column, or null to use the host
 // `weights` (q,).  accumulate != 0 adds to `out` instead of overwriting it.
+// `scratch`: sweep_t1_scratch_floats(n, d) floats of device memory (B
+// packed with its norms and v).
 extern "C" int kernel_matvec_multi_launch(const void* a, const void* b, const void* v,
                                           const float* w, void* out, long long m, long long n,
                                           int d, int t, int q, const int* kids,
                                           const float* sigmas, const float* weights, int bf16,
-                                          int accumulate, void* stream) {
+                                          int accumulate, void* scratch, void* stream) {
   if (m < 0 || n < 0 || d < 1 || t != 1) return (int)cudaErrorInvalidValue;
   MultiSpec spec;
   bool dot, l1;
   if (!make_spec(spec, q, QMAX, kids, sigmas, weights, &dot, &l1) || (!w && !weights))
     return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
-  const dim3 grid((unsigned)((m + TM - 1) / TM));
+  bool l2_pre = true;  // every kernel of the dot accumulator is an l2 kernel
+  for (int i = 0; i < q; ++i)
+    if (family_of(kids[i]) == F_DOT || family_of(kids[i]) == F_COS) l2_pre = false;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
 #define PK_LAUNCH(T, DA, LA)                                                                \
-  kernel_matvec_multi_kernel<T, DA, LA><<<grid, THREADS, 0, s>>>(                           \
-      (const T*)a, (const T*)b, (const T*)v, w, (float*)out, m, n, d, spec, accumulate != 0)
+  err = launch_multi_t1<T, DA, LA>((const T*)a, (const T*)b, (const T*)v, w, (float*)out, m, \
+                                   n, d, spec, l2_pre, accumulate != 0, (float*)scratch, s)
   if (bf16) {
     PK_DISPATCH_FAMILIES(PK_LAUNCH, __nv_bfloat16);
   } else {
     PK_DISPATCH_FAMILIES(PK_LAUNCH, float);
   }
 #undef PK_LAUNCH
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 // The column path, t > 1: a, b, v f32 (bf16 != 0: holding bf16-rounded

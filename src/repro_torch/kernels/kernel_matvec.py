@@ -22,7 +22,7 @@ from repro_torch.kernels import _build
 _SIGNATURE = (
     [ctypes.c_void_p] * 4
     + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-       ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+       ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 )
 
 
@@ -32,6 +32,15 @@ def _fn():
     fn.argtypes = _SIGNATURE
     fn.restype = ctypes.c_int
     return fn
+
+
+def t1_scratch(lib: ctypes.CDLL, n: int, d: int, device) -> torch.Tensor:
+    """The f32 scratch a t = 1 launch of ``lib`` packs B into (its size from
+    the library's ``sweep_t1_scratch_floats(n, d)``)."""
+    size = lib.sweep_t1_scratch_floats
+    size.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    size.restype = ctypes.c_longlong
+    return torch.empty((size(n, d),), dtype=torch.float32, device=device)
 
 
 def check_operands(*xs: torch.Tensor) -> None:
@@ -75,10 +84,14 @@ def kernel_matvec_cuda(
     out = torch.empty((m,) if v.ndim == 1 else (m, t), dtype=torch.float32, device=a.device)
     if m == 0:  # nothing to launch
         return out
+    fn = _fn()
+    # t = 1 packs B with its norms and v into a scratch buffer first
+    scratch = t1_scratch(_build.load("kernel_matvec"), n, d, a.device) if t == 1 else None
     with torch.cuda.device(a.device):  # the launch goes to the runtime's current device
-        err = _fn()(
+        err = fn(
             a.data_ptr(), b.data_ptr(), v.data_ptr(), out.data_ptr(), m, n, d, t,
             float(sigma), KERNEL_NAMES.index(kernel), int(dt == torch.bfloat16),
+            None if scratch is None or scratch.numel() == 0 else scratch.data_ptr(),
             torch.cuda.current_stream(a.device).cuda_stream,
         )
     if err != 0:

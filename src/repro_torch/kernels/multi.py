@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.kernels import KERNEL_NAMES
 from repro_torch.kernels import _build
-from repro_torch.kernels.kernel_matvec import check_operands
+from repro_torch.kernels.kernel_matvec import check_operands, t1_scratch
 
 #: kernels per launch of the weighted matvec and block (``QMAX`` in the source)
 QMAX = 8
@@ -33,7 +33,7 @@ QMAX_COMPONENTS = 4
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
-    "kernel_matvec_multi_launch": [_P] * 5 + [_LL, _LL, _I, _I, _I] + [_P] * 3 + [_I, _I, _P],
+    "kernel_matvec_multi_launch": [_P] * 5 + [_LL, _LL, _I, _I, _I] + [_P] * 3 + [_I, _I, _P, _P],
     "kernel_matvec_multi_cols_launch": [_P] * 5 + [_LL, _LL, _I, _I, _I] + [_P] * 3 + [_I, _I, _P],
     "kernel_matvec_components_launch": [_P] * 4 + [_LL, _LL, _I, _I, _I] + [_P] * 2 + [_I, _P],
     "kernel_block_multi_launch": [_P] * 3 + [_LL, _LL, _I, _I] + [_P] * 3 + [_I, _I, _P],
@@ -101,8 +101,9 @@ def kernel_matvec_multi_cuda(
     (m, t).  ``weights`` is a sequence of q floats (one weight per kernel,
     passed to the kernel by value) or a CUDA f32 tensor (q, t) (per-column
     weights, read by the kernel).  The operands are cast to the policy's
-    type; the weights stay f32.  t = 1 launches the sweep of
-    ``kernel_matvec``; t > 1 the column path, which forms each pair's kernel
+    type; the weights stay f32.  t = 1 launches the t = 1 sweep it shares
+    with ``kernel_matvec`` (B packed with its norms and v into a scratch
+    buffer first); t > 1 the column path, which forms each pair's kernel
     values once for up to 160 columns.
     """
     q = _check_spec(kernels, sigmas)
@@ -131,6 +132,11 @@ def kernel_matvec_multi_cuda(
     if m == 0:  # nothing to launch
         return out
     fn = _fn("kernel_matvec_multi_cols_launch" if t > 1 else "kernel_matvec_multi_launch")
+    # t = 1 packs B with its norms and v into a scratch buffer first
+    extra = ()
+    if t == 1:
+        scratch = t1_scratch(_build.load("kernel_multi"), n, d, a.device)
+        extra = (scratch.data_ptr() if scratch.numel() else None,)
     with torch.cuda.device(a.device):  # the launch goes to the runtime's current device
         stream = torch.cuda.current_stream(a.device).cuda_stream
         for g0 in range(0, q, QMAX):
@@ -140,7 +146,7 @@ def kernel_matvec_multi_cuda(
                 a.data_ptr(), b.data_ptr(), v.data_ptr(),
                 None if w_dev is None else w_dev[g].data_ptr(), out.data_ptr(),
                 m, n, d, t, len(ids), ids, sig, w_static, int(dt == torch.bfloat16),
-                int(g0 > 0), stream,
+                int(g0 > 0), *extra, stream,
             )
             _raise_on(err, "kernel_matvec_multi")
             kernel_matvec_multi_cuda.launches += 1

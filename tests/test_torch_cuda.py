@@ -214,3 +214,67 @@ def test_cuda_weighted_operator_launches_its_kernels(cuda_device, rng):
     cpu = op.with_points(x.cpu())
     want = cpu.matvec(v.cpu()).numpy()
     np.testing.assert_allclose(out[0].cpu().numpy(), want, **_tol(want, *F32_TOL))
+
+
+#: (d, n) edges of the t = 1 sweep: d = 1, the register cap (16) and one
+#: above it (the slab loop over d), and n below one staged B tile and one
+#: past a multiple of it (256 rows a tile up to the cap, 64 above it)
+T1_EDGES = [(1, 301), (16, 301), (17, 301), (9, 100), (9, 257), (37, 50), (37, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", T1_EDGES)
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_t1_sweep_edges_match_plain(cuda_device, rng, d, n, precision):
+    """The t = 1 sweep of kernel_matvec (every kernel) and of the weighted
+    matvec (every combination of MULTI_CASES) at its edges of d and n,
+    against the plain versions, one launch a call (a group for q = 9)."""
+    a = _t((rng.standard_normal((130, d)) / np.sqrt(d)).astype(np.float32)).to(cuda_device)
+    b = _t((rng.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)).to(cuda_device)
+    v = _t(rng.standard_normal((n,)).astype(np.float32)).to(cuda_device)
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    for kern in KERNEL_NAMES:
+        got = kernel_matvec_cuda(a, b, v, kernel=kern, sigma=1.3, precision=precision)
+        want = ops.ref.kernel_matvec(a, b, v, 1.3, kernel=kern, precision=precision).cpu().numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+    for kernels, sigmas in MULTI_CASES.values():
+        w = tuple(float(x) for x in rng.dirichlet(np.ones(len(kernels))))
+        got = kernel_matvec_multi_cuda(a, b, v, w, kernels=kernels, sigmas=sigmas,
+                                       precision=precision)
+        want = ops.ref.kernel_matvec_multi(a, b, v, sigmas, torch.tensor(w, device=cuda_device),
+                                           kernels=kernels, precision=precision).cpu().numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MULTI_CASES))
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_weighted_matvec_t1_weight_column_matches_plain(cuda_device, rng, case, precision):
+    """The weighted matvec at t = 1 with a device (q, 1) weight column and
+    v of shape (n, 1): the device-weight branch of the t = 1 launcher."""
+    kernels, sigmas = MULTI_CASES[case]
+    q = len(kernels)
+    a = _t(rng.standard_normal((130, 9)).astype(np.float32) / 3).to(cuda_device)
+    b = _t(rng.standard_normal((301, 9)).astype(np.float32) / 3).to(cuda_device)
+    v = _t(rng.standard_normal((301, 1)).astype(np.float32)).to(cuda_device)
+    w = _t(rng.dirichlet(np.ones(q))[:, None].astype(np.float32)).to(cuda_device)
+    got = kernel_matvec_multi_cuda(a, b, v, w, kernels=kernels, sigmas=sigmas, precision=precision)
+    want = ops.ref.kernel_matvec_multi(a, b, v, sigmas, w, kernels=kernels,
+                                       precision=precision).cpu().numpy()
+    assert got.shape == (130, 1)
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+
+
+@pytest.mark.cuda
+def test_cuda_t1_sweep_is_deterministic(cuda_device, rng):
+    """Two launches of each t = 1 kernel on the same inputs are bitwise
+    equal (no atomics; the warps' row sums are added in a fixed order)."""
+    a = _t(rng.standard_normal((3000, 9)).astype(np.float32)).to(cuda_device)
+    b = _t(rng.standard_normal((50_000, 9)).astype(np.float32)).to(cuda_device)
+    v = _t(rng.standard_normal((50_000,)).astype(np.float32)).to(cuda_device)
+    kernels, sigmas = MULTI_CASES["l2+l1"]
+    for fn in (lambda: kernel_matvec_cuda(a, b, v, kernel="rbf", sigma=1.0, precision="f32"),
+               lambda: kernel_matvec_multi_cuda(a, b, v, (0.5, 0.2, 0.3), kernels=kernels,
+                                                sigmas=sigmas, precision="f32")):
+        assert torch.equal(fn(), fn())

@@ -5,14 +5,27 @@
 
 ``kernel_matvec`` at (50,000 x 10^6, d = 9, t = 1) and ``kernel_block`` at
 (50,000 x 50,000, d = 9), rbf, f32, on the operands of ``chip_smoke.py``'s
-``main_path_inputs``, and ``kernel_matvec`` for 64 queries against the 10^6
-rows (one block: the small-m prediction case), and the weighted matvec
+``main_path_inputs``, and ``kernel_matvec`` for 10^4 queries (the solve's
+prediction) and for 64 (one block: the small-m case) against the 10^6 rows;
+the weighted matvec ``kernel_matvec_multi`` (rbf + laplacian + matern52,
+(q,) weights (0.665, 0.021, 0.314): the combination the tune of
+``chip_smoke.py`` picks for the refit) at t = 1 on the same operands: the
+refit's G_B (50,000 x 10^6) and its prediction (10^4 x 10^6); and the
+weighted matvec
 ``kernel_matvec_multi`` on the first 20,000 of those rows (rbf + laplacian
 + matern52) at the widths its callers send: the tune's ``matvec_cols`` in
 ``chip_smoke.py`` (160 columns), the ``krr_tune`` launcher's default tune
 (120 columns), both with per-column Dirichlet weights from seed 0, and a
 Nystrom sketch of rank 100 with (q,) weights.  Each weighted-matvec time is
-printed beside its bound (``chip_smoke._bound_multi``).  Timing is
+printed beside its bound (``chip_smoke._bound_multi``).  Also the stacked
+matvec at the tune's sketch (20,000^2 x 100) and the weighted block at the
+refit's K_BB (50,000^2).  ``t1_parts_ms`` prices the parts of the t = 1
+sweep at the solve's G_B, sigma 1: ``kernel_matvec`` per map (rbf f32 and
+bf16, laplacian, matern52, linear, cosine) and the weighted matvec with
+equal (q,) weights per combination (rbf, laplacian, matern52 alone,
+rbf + matern52, rbf + laplacian, all three in f32 and bf16): the
+differences between rows price a family's sum (laplacian's |a - b|
+against rbf's a.b) and a map (matern52 over rbf).  Timing is
 ``chip_smoke._time_ms`` (CUDA events), median of 7 after one warm-up.
 Prints one JSON line.  Whichever ``repro_torch`` is first on ``PYTHONPATH``
 is timed, so two versions are compared by alternating runs within one
@@ -34,7 +47,15 @@ import chip_smoke  # noqa: E402
 
 from repro_torch.kernels.kernel_block import kernel_block_cuda  # noqa: E402
 from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda  # noqa: E402
-from repro_torch.kernels.multi import kernel_matvec_multi_cuda  # noqa: E402
+from repro_torch.kernels.multi import (  # noqa: E402
+    kernel_block_multi_cuda,
+    kernel_matvec_components_cuda,
+    kernel_matvec_multi_cuda,
+)
+
+#: the refit's (rbf, laplacian, matern52) weights: the tune's best in
+#: chip_smoke.py, rounded
+REFIT_WEIGHTS = (0.665, 0.021, 0.314)
 
 
 def main() -> None:
@@ -52,7 +73,17 @@ def main() -> None:
     mv_ms = median_ms(lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=1.0, precision="f32"))
     blk_ms = median_ms(lambda: kernel_block_cuda(xb, xb, kernel="rbf", sigma=1.0, precision="f32"))
     small_ms = median_ms(lambda: kernel_matvec_cuda(q, x, z, kernel="rbf", sigma=1.0, precision="f32"))
+    xq = xb[:chip_smoke.N_TEST].contiguous()
+    pred_ms = median_ms(lambda: kernel_matvec_cuda(xq, x, z, kernel="rbf", sigma=1.0, precision="f32"))
     ks = chip_smoke.MK_KERNELS
+    sg = (1.0,) * len(ks)
+    w_refit = REFIT_WEIGHTS
+    t1 = {}
+    for label, rows in (("refit_gb", xb), ("refit_predict", xq)):
+        ms = median_ms(lambda: kernel_matvec_multi_cuda(rows, x, z, w_refit, kernels=ks, sigmas=sg,
+                                                        precision="f32"))
+        bound = chip_smoke._bound_multi(rows.shape[0], x.shape[0], chip_smoke.D, 1, ks, "matvec")
+        t1[label] = {"m": rows.shape[0], "ms": ms, "bound_ms": bound["bound_ms"]}
     xt = x[:chip_smoke.N_TUNE]
     gen = torch.Generator(device="cuda").manual_seed(5)
     cols = {}
@@ -69,8 +100,30 @@ def main() -> None:
         bound = chip_smoke._bound_multi(chip_smoke.N_TUNE, chip_smoke.N_TUNE, chip_smoke.D, t, ks,
                                         "cols" if per_column else "matvec")
         cols[label] = {"t": t, "ms": ms, "bound_ms": bound["bound_ms"]}
+    omega = torch.randn((chip_smoke.N_TUNE, chip_smoke.RANK), generator=gen, device="cuda")
+    comp_ms = median_ms(lambda: kernel_matvec_components_cuda(xt, xt, omega, kernels=ks, sigmas=sg,
+                                                              precision="f32"))
+    blk_multi_ms = median_ms(lambda: kernel_block_multi_cuda(xb, xb, kernels=ks, sigmas=sg,
+                                                             weights=w_refit, precision="f32"))
+    parts = {}
+    for k, precs in (("rbf", ("f32", "bf16")), ("laplacian", ("f32",)), ("matern52", ("f32",)),
+                     ("linear", ("f32",)), ("cosine", ("f32",))):
+        for prec in precs:
+            parts[f"mv {k} {prec}"] = median_ms(
+                lambda: kernel_matvec_cuda(xb, x, z, kernel=k, sigma=1.0, precision=prec))
+    for kk, precs in ((("rbf",), ("f32",)), (("laplacian",), ("f32",)), (("matern52",), ("f32",)),
+                      (("rbf", "matern52"), ("f32",)), (("rbf", "laplacian"), ("f32",)),
+                      (ks, ("f32", "bf16"))):
+        w = tuple(1.0 / len(kk) for _ in kk)
+        for prec in precs:
+            parts[f"multi {'+'.join(kk)} {prec}"] = median_ms(
+                lambda: kernel_matvec_multi_cuda(xb, x, z, w, kernels=kk, sigmas=(1.0,) * len(kk),
+                                                 precision=prec))
     print(json.dumps({"label": args.label, "kernel_matvec_ms": mv_ms, "kernel_block_ms": blk_ms,
-                      "kernel_matvec_m64_ms": small_ms, "kernel_matvec_multi_cols": cols,
+                      "kernel_matvec_predict_ms": pred_ms, "kernel_matvec_m64_ms": small_ms,
+                      "kernel_matvec_multi_t1": t1, "kernel_matvec_multi_cols": cols,
+                      "kernel_matvec_components_ms": comp_ms, "kernel_block_multi_ms": blk_multi_ms,
+                      "t1_parts_ms": parts,
                       "card": chip_smoke.nvidia_smi_line()}))
 
 if __name__ == "__main__":
