@@ -31,9 +31,17 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                matvec's column path at t = 160, 161 and 150, with (q,) and
                per-column (q, t) weights, for every combination (q = 9
                included); the weighted matvec at t = 1 with a device (q, 1)
-               weight column on v (n, 1), and on T1_EDGES.  264 checks.
+               weight column on v (n, 1), and on T1_EDGES; the stacked
+               matvec at t in STACKED_T = (2, 100, 101, 161) with q in
+               {1, 3, 4, 5} (STACKED_CASES); the weighted block at
+               BLOCK_EDGES (d = 1, 16, 17, 37; n % 4 == 0 with a ragged
+               128-column strip, m and n below one tile) and, at
+               SAME_EDGES, with b the same tensor as a (the symmetric
+               path) and a copy of it.  440 checks.
   3c. determinism — two launches of each t = 1 kernel (kernel_matvec, the
-               weighted matvec) at the solve's G_B shape are bitwise equal.
+               weighted matvec) at the solve's G_B shape, of the weighted
+               block at the refit's K_BB and of the stacked matvec at the
+               tune's sketch are bitwise equal.
   4. solve   — the main path through ``solver_api.solve("askotch")`` at the
                paper's taxi configuration (d = 9, rbf, sigma = 1,
                lam_unscaled = 2e-7, b = 50,000, r = 100, f32), with n cut
@@ -338,31 +346,47 @@ def phase_check() -> dict:
 
 
 def phase_check_determinism() -> None:
-    """Two launches of each redesigned t = 1 kernel at the solve's G_B shape
-    (50,000 x 10^6, d = 9) give bitwise equal results."""
+    """Two launches of each redesigned kernel at its main-path shape give
+    bitwise equal results: the t = 1 kernels at the solve's G_B (50,000 x
+    10^6, d = 9), the weighted block at the refit's K_BB (50,000^2) and the
+    stacked matvec at the tune's sketch (20,000^2 x 100)."""
     import torch
 
     from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda
-    from repro_torch.kernels.multi import kernel_matvec_multi_cuda
+    from repro_torch.kernels.multi import (
+        kernel_block_multi_cuda,
+        kernel_matvec_components_cuda,
+        kernel_matvec_multi_cuda,
+    )
 
     x, xb, z = main_path_inputs()
     w = (0.5, 0.2, 0.3)
+    sg = (SIGMA,) * len(MK_KERNELS)
+    xt = x[:N_TUNE]
+    omega = torch.randn((N_TUNE, RANK), generator=torch.Generator(device="cuda").manual_seed(9),
+                        device="cuda")
     runs = {
-        "kernel_matvec": lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=SIGMA,
-                                                    precision="f32"),
-        "kernel_matvec_multi": lambda: kernel_matvec_multi_cuda(
-            xb, x, z, w, kernels=MK_KERNELS, sigmas=(SIGMA,) * len(MK_KERNELS), precision="f32"),
+        "kernel_matvec": ([BLOCK, N_TRAIN, D, 1], lambda: kernel_matvec_cuda(
+            xb, x, z, kernel="rbf", sigma=SIGMA, precision="f32")),
+        "kernel_matvec_multi": ([BLOCK, N_TRAIN, D, 1], lambda: kernel_matvec_multi_cuda(
+            xb, x, z, w, kernels=MK_KERNELS, sigmas=sg, precision="f32")),
+        "kernel_block_multi": ([BLOCK, BLOCK, D], lambda: kernel_block_multi_cuda(
+            xb, xb, kernels=MK_KERNELS, sigmas=sg, weights=w, precision="f32")),
+        "kernel_matvec_components": ([N_TUNE, N_TUNE, D, RANK], lambda: kernel_matvec_components_cuda(
+            xt, xt, omega, kernels=MK_KERNELS, sigmas=sg, precision="f32")),
     }
-    for name, fn in runs.items():
-        first, second = fn(), fn()
+    for name, (shape, fn) in runs.items():
+        first = fn()
+        second = fn()
         torch.cuda.synchronize()
         same = bool(torch.equal(first, second))
-        emit({"check": "determinism", "kernel": name, "shape": [BLOCK, N_TRAIN, D, 1],
-              "bitwise_equal": same})
+        emit({"check": "determinism", "kernel": name, "shape": shape, "bitwise_equal": same})
         if not same:
-            fail(f"{name}: two launches at the G_B shape differ "
+            fail(f"{name}: two launches at shape {shape} differ "
                  f"(max {float((first - second).abs().max())})")
-    del x, xb, z
+        del first, second
+        torch.cuda.empty_cache()
+    del x, xb, z, omega
     torch.cuda.empty_cache()
 
 
@@ -389,6 +413,35 @@ T1_EDGES = [(1, 3001), (16, 3001), (17, 3001), (9, 100), (9, 257), (37, 50), (37
 #: path: the tune's 160 columns (one 160-column block), 161 (two 128-column
 #: blocks of 84 and 77 columns) and 150 (one ragged 160-column block)
 WIDE_T = (160, 161, 150)
+
+#: the stacked matvec's widths in check_multi: 2, the tune's rank 100 (one
+#: 128-column block), a ragged 101 (not a multiple of 4: V copied in 4-byte
+#: units) and 161 (two column blocks)
+STACKED_T = (2, 100, 101, 161)
+
+#: the stacked matvec's combinations: q = 1 (l1 alone), 3 (the tune's l2 +
+#: l1), 4 (dot + cos, one full launch) and 5 (two launches of 4 and 1)
+STACKED_CASES = [
+    (("laplacian",), (0.8,)),
+    MULTI_CASES[0],
+    MULTI_CASES[1],
+    (("rbf", "laplacian", "matern52", "cosine", "rbf"), (1.5, 0.8, 2.2, 1.0, 0.6)),
+]
+
+#: (d, m, n) edges of the weighted block, held with every MULTI_CASES
+#: combination (q = 9: two launches, the second with accumulate): n % 4 == 0
+#: with a ragged last 128-column strip (the float4 store path), m and n below
+#: one 64 x 128 warp tile, d = 1, the register cap 16 and one above it (the
+#: slab loop), and d = 37
+BLOCK_EDGES = [(9, 1000, 3000), (9, 37, 50), (1, 200, 129), (16, 300, 260), (17, 65, 131),
+               (37, 1000, 3000)]
+
+#: (d, m) of the weighted block of one point set, b the same tensor as a
+#: (the symmetric path: tiles on and above the diagonal, each above it also
+#: written transposed) and b a copy of a (the full path): 1000 rows (eight
+#: 128-row tiles, the last ragged), 132 (one mirrored tile of 4 rows), 256
+#: (two whole tiles) at d = 16, and d = 37 (the slab loop)
+SAME_EDGES = [(9, 1000), (9, 132), (16, 256), (37, 1000)]
 
 
 def phase_check_multi() -> dict:
@@ -494,8 +547,53 @@ def phase_check_multi() -> dict:
                                                precision=prec)
                 check("kernel_matvec_multi", got, want, prec, kernels=list(kernels), d=d, n=n_e,
                       operands="w(q,) v(n,)")
+    # the stacked matvec at the tune's rank, ragged and two-block widths
+    gen_st = torch.Generator().manual_seed(10)
+    for d in (9, 37):
+        a = (torch.randn((m, d), generator=gen_st) / math.sqrt(d)).cuda()
+        b = (torch.randn((n, d), generator=gen_st) / math.sqrt(d)).cuda()
+        a[3] = 0.0
+        for ts in STACKED_T:
+            v = torch.randn((n, ts), generator=gen_st).cuda()
+            for kernels, sigmas in STACKED_CASES:
+                for prec in ("f32", "bf16"):
+                    want = ref.kernel_matvec_components(a, b, v, sigmas, kernels=kernels,
+                                                        precision=prec)
+                    got = kernel_matvec_components_cuda(a, b, v, kernels=kernels, sigmas=sigmas,
+                                                        precision=prec)
+                    check("kernel_matvec_components", got, want, prec, kernels=list(kernels), d=d,
+                          operands=f"v(n,{ts})")
+    # the weighted block at its edges, and with b the same tensor as a (packed
+    # once) and a copy of it
+    gen_bl = torch.Generator().manual_seed(11)
+    rng_bl = np.random.default_rng(11)
+    for d, m_e, n_e in BLOCK_EDGES:
+        a = (torch.randn((m_e, d), generator=gen_bl) / math.sqrt(d)).cuda()
+        b = (torch.randn((n_e, d), generator=gen_bl) / math.sqrt(d)).cuda()
+        a[3] = 0.0
+        for kernels, sigmas in MULTI_CASES:
+            w = tuple(float(x) for x in rng_bl.dirichlet(np.ones(len(kernels))))
+            for prec in ("f32", "bf16"):
+                want = ref.kernel_block_multi(a, b, sigmas, w, kernels=kernels, precision=prec)
+                got = kernel_block_multi_cuda(a, b, kernels=kernels, sigmas=sigmas, weights=w,
+                                              precision=prec)
+                check("kernel_block_multi", got, want, prec, kernels=list(kernels), d=d, m=m_e,
+                      n=n_e)
+    for d, m_e in SAME_EDGES:
+        a = (torch.randn((m_e, d), generator=gen_bl) / math.sqrt(d)).cuda()
+        for kernels, sigmas in MULTI_CASES:
+            w = tuple(float(x) for x in rng_bl.dirichlet(np.ones(len(kernels))))
+            for prec in ("f32", "bf16"):
+                want = ref.kernel_block_multi(a, a.clone(), sigmas, w, kernels=kernels,
+                                              precision=prec)
+                for b, label in ((a, "b is a"), (a.clone(), "b a copy of a")):
+                    got = kernel_block_multi_cuda(a, b, kernels=kernels, sigmas=sigmas,
+                                                  weights=w, precision=prec)
+                    check("kernel_block_multi", got, want, prec, kernels=list(kernels), d=d,
+                          m=m_e, operands=label)
     emit({"phase": "check_multi", "m": m, "n": n, "t": [t, *WIDE_T], "t1_edges": T1_EDGES,
-          "checks": n_checks, "worst_abs_err": worst})
+          "stacked_t": STACKED_T, "block_edges": BLOCK_EDGES, "checks": n_checks,
+          "worst_abs_err": worst})
     return worst
 
 

@@ -1,5 +1,5 @@
 // The three weighted-sum (multi-kernel) kernels: q base kernels K_i with
-// per-kernel bandwidths, evaluated from ONE pass over the (A, B) tiles.
+// per-kernel bandwidths, evaluated from ONE pass over the (A, B) pairs.
 //
 // Replaces the TPU kernels of src/repro/kernels/multi.py:
 //   * kernel_matvec_multi_launch (t = 1) and
@@ -10,86 +10,124 @@
 //   * kernel_block_multi_launch        <- kernel_block_multi_pallas
 //     out = sum_i w_i K_i(A, B) materialised, static weights.
 //
-// Design.  Common to the three kernels:
-//   * Families.  The base tile is computed once per family present, as the
+// Common to the kernels:
+//   * Families.  The base value is computed once per family present, as the
 //     TPU kernel did: l2, dot and cos all need only sum a.b (plus the row
 //     norms), so one accumulator serves them; l1 needs its own |a - b|
 //     accumulator.  The kernels are templated on which of the two
-//     accumulators the launch needs: three instantiations, not 7^q.
+//     accumulators they form, not on the 7^q combinations.
 //   * Runtime q.  The kernel ids, bandwidths and static weights arrive by
-//     value in a MultiSpec of at most QMAX entries (QC for the components
-//     kernel, whose q x RM x TC accumulators live in registers); each block
-//     copies them, with the map constants, into shared memory.  The wrapper
-//     splits a larger q into groups and sums (matvec, block: a launch with
-//     `accumulate` adds to the output) or concatenates (components) them.
-//   * Per-column weights.  V is pre-scaled per kernel: w_ic (K_i v)[:, c]
-//     == (K_i (v * w_i))[:, c], so one accumulator per (row, column) serves
-//     all q kernels.
-// The stacked matvec and the weighted block run on sweep_b below, the 64 x 64
-// tiles and 16-lane shuffle reduction of the first port (kernel_common.cuh),
-// the map chosen per kernel by a switch uniform across the block, once per
-// 4 x 4 register tile.
+//     value in a MultiSpec of at most QMAX entries (QC for the stacked
+//     matvec); each block copies them, with the map constants, into shared
+//     memory, and a thread reads one kernel's id, constants and weight into
+//     registers once per group of pairs, where the switch on the id is taken.
+//     The wrapper splits a larger q into groups and sums (matvec, block: a
+//     launch with `accumulate` adds to the output) or concatenates (stacked
+//     matvec) them.
 //
-// The weighted matvec has two paths.  t == 1 (the refit's G_B, residual and
-// prediction) runs on the t = 1 sweep it shares with kernel_matvec.cu
-// (sweep_t1.cuh: B packed once a launch with its norms and v, 256-row tiles
-// staged by cp.async, the block's 64 rows of A in registers, whole row sums
-// per thread).  Per 16-pair group a thread forms the family sums, then, per
-// kernel, reads its id, map constants and weight once into registers, takes
-// the switch on the id once and accumulates K_k * (v w_k) over the 16 pairs;
-// with no dot or cos kernel the clamped l2 distance is formed once for all
-// l2 kernels.  Bound: operations.  At the refit's G_B (rbf + laplacian +
-// matern52, d = 9) a pair costs 2d operations for the l1 sum, d for the dot
-// product and about 20 for three maps and three products, and four
-// special-function operations (three ex2, one sqrt.approx), whose 16 results
-// a clock an SM set a floor of ~48 ms at 5e10 pairs.
+// The weighted matvec at t == 1 (the refit's G_B, residual and prediction)
+// runs on the t = 1 sweep it shares with kernel_matvec.cu (sweep_t1.cuh: B
+// packed once a launch with its norms and v, 256-row tiles staged by
+// cp.async, the block's 64 rows of A in registers, whole row sums per
+// thread).  Per 16-pair group a thread forms the family sums, then, per
+// kernel, accumulates K_k * (v w_k); with no dot or cos kernel the clamped
+// l2 distance is formed once for all l2 kernels.  Bound: operations.  At the
+// refit's G_B (rbf + laplacian + matern52, d = 9) a pair costs 2d operations
+// for the l1 sum, d for the dot product and about 20 for three maps and
+// three products, and four special-function operations (three ex2, one
+// sqrt.approx), whose 16 results a clock an SM set a floor of ~48 ms at
+// 5e10 pairs.
 //
-// t > 1 (the tune's matvec_cols, 160 columns) runs on the column path,
-// kernel_matvec_cols_kernel:
-//   * Kernel values once for all columns.  The TPU kernel takes all of V's
-//     columns in one block, so it forms each pair's distances and q maps
+// The column path (kernel_matvec_cols_kernel: the weighted matvec at t > 1,
+// the tune's matvec_cols, 160 columns; and the stacked matvec,
+// kernel_components_cols_kernel, the tune's sketch, 100 columns):
+//   * Kernel values once for all columns.  The TPU kernels take all of V's
+//     columns in one block, so they form each pair's distances and maps
 //     once.  A block here owns 32 rows of A and a column block of at most
 //     TCB = 160 columns (t is split evenly over the fewest such blocks; a
-//     block of at most 128 columns runs with TCB = 128), so at t = 160 each
-//     pair's distances and maps are formed once per 16-row B tile and
-//     written to shared memory; every thread then streams its 8 rows x 10
-//     columns of the output (80 f32 registers, no lane reduction) through
-//     them.  Per B row and kernel: two float4 of K_k, 10 multiplies of the
-//     shared V row by the weights (held in registers, three kernels at a
-//     time, so one V row read serves three kernels) and 80 FMAs.
+//     block of at most 128 columns runs with TCB = 128), so each pair's
+//     distances and maps are formed once per 16-row B tile and written to
+//     shared memory; every thread then streams its 8 rows x 10 (8) columns
+//     of the output (80 (64) f32 registers, no lane reduction) through them.
+//     Per B row and kernel: two float4 of K_k, the shared V row and 80 FMAs
+//     (the weighted matvec first multiplies the V row by the column weights,
+//     held in registers three kernels at a time).
+//   * The stacked matvec's (q, m, t) output has no weights to fold the q
+//     kernels into one accumulator, and a thread holds one 80-register
+//     output tile, so the grid spreads over the kernels: grid.z = q, and a
+//     block forms only its kernel's family sum and map and writes out[z].
+//     A pair's family sum is then formed once per kernel, not once per
+//     family (at the sketch's rbf + laplacian + matern52 the dot product
+//     twice: 9 of ~340 operations a pair at t = 100); in exchange each block
+//     keeps the weighted path's 64 threads, registers and shared memory
+//     (cols_smem_bytes(1): 31 KB at 128 columns), so six blocks share an SM.
+//     The sketch's 625 x 3 blocks give each SM about the work the weighted
+//     matvec's 625 blocks of three kernels each do.
 //   * Shared memory (dynamic): the V tile (16 x TCB) and the transposed B
 //     slab, each double-buffered and copied by cp.async one tile ahead (no
 //     register holds data in flight); the A tile; each thread's pair
 //     accumulators; then q kernel tiles (16 x 32) and q weight rows.  At
 //     q = 3 and 160 columns that is 41.2 KB; above 48 KB (q > 5) the
-//     launcher opts in to more.  64 threads of at most 168 registers: five
-//     blocks share an SM, so the 625 blocks of a 20,000-row, 160-column
-//     launch run in one wave.
-//   * Bound: the q x t FMAs a pair (480 at q = 3, t = 160) at the FP32
-//     CUDA-core rate.  Tensor cores are not used: the f32 policy is true
-//     f32, which TF32 products would break.
-//   * The operands arrive as f32 (the wrapper widens bf16-rounded values),
+//     launcher opts in to more.  64 threads of at most 168 registers.
+//   * Bound: the q x t FMAs a pair (480 at q = 3, t = 160; 300 for the
+//     sketch) at the FP32 CUDA-core rate.  Tensor cores are not used: the
+//     f32 policy is true f32, which TF32 products would break.
+//   * The operands arrive as f32 (the wrappers widen bf16-rounded values),
 //     so rows of any d and t are copied in 4-byte units (V in 16-byte units
 //     when t % 4 == 0).
 //
+// The weighted block (kernel_block_multi_kernel: the refit's K_BB, 50,000^2):
+//   * Bound: the output.  10 GB of f32 at 3.35 TB/s is ~3.0 ms; beneath it
+//     the pair work (~45 instructions a pair for l1 + dot + three maps, ~3.4
+//     ms at full issue) and four special-function operations a pair (~2.4
+//     ms) must overlap the stores.
+//   * Lanes own columns.  The output is row-major, so lane l of a warp owns
+//     the four consecutive columns 4l .. 4l + 3 of a 128 x 128 tile: their
+//     B rows sit in registers (packed once a launch with their norms, 9 or
+//     16 feature slots), and a warp writes each output row of its tile as
+//     one float4 a lane, 512 consecutive bytes (four whole 128-byte lines),
+//     with the streaming hint (st.global.cs: the 10 GB pass through the 50
+//     MB L2 once).  No shared-memory transpose is needed for these stores.
+//   * A rows are read by the whole warp at one address (a broadcast load of
+//     the packed row, its norm in the same 16 bytes), four at a time: a
+//     group is 4 rows x 4 columns, 16 pairs a lane.  Per group the family
+//     sums are formed once; with no dot or cos kernel the dot sum starts at
+//     -||a||^2 / 2 and the clamped l2 distance is formed once for all l2
+//     kernels; then, per kernel, its id, map constants and weight are read
+//     into registers and the switch taken once for the 16 pairs.
+//   * Symmetry.  When A and B are the same rows (the refit's op.block(xb):
+//     the wrapper passes the same tensor, packed once), warps take only the
+//     tiles on and above the diagonal and write each tile above it a second
+//     time, transposed: every 32 rows a warp stages its 128 x 32 values in
+//     its 16 KB of shared memory (the float4 index swizzled, so neither the
+//     staging nor the reads meet a bank conflict) and writes 128 whole
+//     128-byte lines.  The pair work halves; the writes stay 10 GB.
+//   * Blocks of 4 warps at up to 170 registers, three an SM (64 KB of shared
+//     memory each on the symmetric path), form a persistent grid; each warp
+//     walks tiles on its own, so one warp's stores drain while it and its
+//     neighbours compute.
+//   * Above 16 features a slab loop of 16 reloads the lane's B slab per
+//     group (the rows are packed to a multiple of 16 features).
+
 // Precision (the TPU kernels' bf16 semantics): with bf16 operands, the
-// weighted matvec rounds each K_i tile and each V * w_i to bf16 before their
-// product (accumulated in f32); the components kernel rounds only K_i (V is
+// weighted matvec rounds each K_i value and each V * w_i to bf16 before their
+// product (accumulated in f32); the stacked matvec rounds only K_i (V is
 // already bf16); the block rounds only the operands and keeps the weighted
-// sum of f32 tiles in f32.
+// sum of f32 values in f32.
 //
-// Deterministic: no atomics; sweep_b reduces the 16 partial sums of a row by
-// a fixed butterfly of shuffles, the t = 1 sweep adds its 8 warps' row sums
-// in warp order, the column path needs neither (a thread owns whole sums),
-// and group launches are ordered on the stream.
+// Deterministic: no atomics; the t = 1 sweep adds its 8 warps' row sums in
+// warp order, the column path and the block need no reduction across
+// threads (a thread owns whole sums and whole output values), and group
+// launches are ordered on the stream.
+#include <algorithm>
+
 #include "kernel_common.cuh"
 #include "sweep_t1.cuh"
 
 using namespace pk;
 
 constexpr int QMAX = 8;  // kernels per launch (weighted matvec, block)
-constexpr int QC = 4;    // kernels per launch (components: q x RM x TC registers)
-constexpr int TCC = 4;   // column chunk of the components kernel for t > 1
+constexpr int QC = 4;    // kernels per launch of the stacked matvec (grid.z = q)
 
 // The combination of one launch, by value: q <= QMAX entries.
 struct MultiSpec {
@@ -148,88 +186,6 @@ __device__ __forceinline__ void tile_map(int kid, float (&kv)[R][J], const float
     case K_SIGMOID: tile_map_k<K_SIGMOID>(kv, acc, acc1, av, bv, mc); break;
     default: tile_map_k<K_COSINE>(kv, acc, acc1, av, bv, mc); break;
   }
-}
-
-// The sweep of the stacked matvec and the weighted block: for each 64-row tile of B in
-// [j_begin, j_end) the family accumulators of the thread's 4 x 4 pairs,
-// then `epilogue(j0, acc, acc1, av, bv, cols)`, with V of the tile (columns
-// [c0, c0 + tc)) staged in Vs when TC > 0; the block kernel has no V (TC = 0).
-template <typename T, bool DOTACC, bool L1ACC, int TC, typename Epilogue>
-__device__ __forceinline__ void sweep_b(const T* __restrict__ a, const T* __restrict__ b,
-                                        const T* __restrict__ v, int64_t m, int64_t n, int d,
-                                        int t, int c0, int tc, int64_t j_begin, int64_t j_end,
-                                        float (*As)[TM], float (*Bs)[TN], float (*Vs)[TN],
-                                        float* a2, float* b2, Epilogue epilogue) {
-  constexpr bool NORMS = DOTACC;
-  constexpr int PV = TC > 0 ? (TN * TC + THREADS - 1) / THREADS : 1;
-  const int rg = threadIdx.x / LANES, lane = threadIdx.x % LANES;
-  const int64_t r0 = (int64_t)blockIdx.x * TM;
-  const int ns = (d + DC - 1) / DC;  // slabs per B tile
-  const bool a_once = ns == 1;
-
-  if (NORMS) a_sq_norms(a2, a, r0, m, d);
-  if (a_once) stage_a(As, a, r0, m, d, 0, d);
-
-  float pb[PB], pv[PV];
-  int64_t f_j0 = j_begin;
-  int f_slab = 0;
-  auto fetch_next = [&]() {
-    const int k0 = f_slab * DC;
-    fetch_b(pb, b, f_j0, n, d, k0, min(DC, d - k0));
-    if constexpr (TC > 0)
-      if (f_slab == 0) fetch_v<T, TC, PV>(pv, v, f_j0, n, t, c0, tc);
-    if (++f_slab == ns) {
-      f_slab = 0;
-      f_j0 += TN;
-    }
-  };
-  if (j_begin < j_end) fetch_next();
-
-  for (int64_t j0 = j_begin; j0 < j_end; j0 += TN) {
-    float acc[RM][JN] = {}, acc1[RM][JN] = {};
-    for (int slab = 0; slab < ns; ++slab) {
-      const int k0 = slab * DC, kc = min(DC, d - k0);
-      __syncthreads();  // readers of the previous slab / tile are done
-      commit_b(Bs, pb, kc);
-      if constexpr (TC > 0)
-        if (slab == 0) commit_v<TC, PV>(Vs, pv);
-      if (!a_once) stage_a(As, a, r0, m, d, k0, kc);
-      __syncthreads();
-      if (f_j0 < j_end) fetch_next();  // in flight during the arithmetic below
-      if (NORMS) b_sq_norms(b2, Bs, kc, slab == 0);
-      if (DOTACC) accumulate_slab<F_DOT>(acc, As, Bs, rg, lane, kc);
-      if (L1ACC) accumulate_slab<F_L1>(acc1, As, Bs, rg, lane, kc);
-    }
-    if (NORMS) __syncthreads();  // b2 complete
-
-    float av[RM] = {}, bv[JN] = {};
-    if (NORMS) {
-      const float4 a24 = *reinterpret_cast<const float4*>(&a2[rg * RM]);
-      const float4 b24 = *reinterpret_cast<const float4*>(&b2[lane * JN]);
-      av[0] = a24.x; av[1] = a24.y; av[2] = a24.z; av[3] = a24.w;
-      bv[0] = b24.x; bv[1] = b24.y; bv[2] = b24.z; bv[3] = b24.w;
-    }
-    const int cols = n - j0 < TN ? (int)(n - j0) : TN;  // live columns of this tile
-    epilogue(j0, acc, acc1, av, bv, cols);
-  }
-}
-
-// Zero the values of columns past the ragged end of B.
-__device__ __forceinline__ void mask_cols(float (&kv)[RM][JN], int lane, int cols) {
-#pragma unroll
-  for (int j = 0; j < JN; ++j) {
-    if (lane * JN + j < cols) continue;
-#pragma unroll
-    for (int i = 0; i < RM; ++i) kv[i][j] = 0.0f;
-  }
-}
-
-// Round every value of the tile to bf16 (the bf16 matmul operand).
-__device__ __forceinline__ void round_tile(float (&kv)[RM][JN]) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < JN; ++j) kv[i][j] = round_bf16(kv[i][j]);
 }
 
 // One kernel's share of a group of the t = 1 sweep: o[r] += K_KID(a_r, b_j)
@@ -323,13 +279,15 @@ kernel_matvec_multi_kernel(const T* __restrict__ a, const float* __restrict__ bp
 }
 
 // ---------------------------------------------------------------------------
-// The column path: the weighted matvec for t > 1 (the tune's matvec_cols).
-// A block of CTHREADS threads owns CM rows of A and cw <= TCB = CCG * CO
-// columns of V; it walks B in tiles of CN rows.  Per tile, thread (rg, cg) = (tid /
-// CCG, tid % CCG) forms the family accumulators of rows rg*CRO .. +7
-// against B row cg and writes their q kernel values to ks; then it
-// multiplies its CRO x CO output tile (rows rg*CRO .., columns cg*CO ..) by
-// ks and by the V tile, scaled by its columns' weights in registers.
+// The column path: the weighted matvec for t > 1 (the tune's matvec_cols)
+// and the stacked matvec (the tune's sketch).  A block of CTHREADS threads
+// owns CM rows of A and cw <= TCB = CCG * CO columns of V; it walks B in
+// tiles of CN rows.  Per tile, thread (rg, cg) = (tid / CCG, tid % CCG) forms
+// the family accumulators of rows rg*CRO .. +7 against B row cg and writes
+// their q kernel values to ks; then it multiplies its CRO x CO output tile
+// (rows rg*CRO .., columns cg*CO ..) by ks and by the V tile, scaled by its
+// columns' weights in registers (the stacked matvec: one kernel a block,
+// unweighted).
 // ---------------------------------------------------------------------------
 
 constexpr int CTHREADS = 64;
@@ -377,20 +335,22 @@ __device__ __forceinline__ void cp_async_wait1() {
 }
 
 // out (m, t) (+)= (sum_i w_i K_i(A, B)) @ V, t > 1: grid.y block y owns
-// columns [y cw, min((y + 1) cw, t)), cw <= TCB.  A, B and V are f32 (for BF16, holding bf16-rounded values); w:
-// (q, t) f32 rows in device memory, or null for the static (q,) weights of
-// `spec`.  v16: t % 4 == 0, cw % 4 == 0 and v 16-byte aligned (V copied
-// in float4).
-template <bool BF16, bool DOTACC, bool L1ACC, int CO>
-__global__ void __launch_bounds__(CTHREADS, 6)
-kernel_matvec_cols_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                          const float* __restrict__ v, const float* __restrict__ w,
-                          float* __restrict__ out, int64_t m, int64_t n, int d, int t,
-                          int cw, MultiSpec spec, bool v16, bool accumulate) {
+// columns [y cw, min((y + 1) cw, t)), cw <= TCB.  A, B and V are f32 (for
+// BF16, holding bf16-rounded values); w: (q, t) f32 rows in device memory,
+// or null for the static (q,) weights of `spec`.  v16: t % 4 == 0, cw % 4
+// == 0 and v 16-byte aligned (V copied in float4).  STACKED: out = K_z(A, B)
+// @ V for entry z of `spec` alone (no weights, no accumulate).
+template <bool BF16, bool DOTACC, bool L1ACC, int CO, bool STACKED>
+__device__ __forceinline__ void cols_body(const float* __restrict__ a, const float* __restrict__ b,
+                                          const float* __restrict__ v, const float* __restrict__ w,
+                                          float* __restrict__ out, int64_t m, int64_t n, int d,
+                                          int t, int cw, const MultiSpec& spec, bool v16,
+                                          bool accumulate, int z) {
   constexpr int TCB = CCG * CO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   ColsSmem<TCB>& S = *reinterpret_cast<ColsSmem<TCB>*>(smem_raw);
-  const int q = spec.q;
+  const int q = STACKED ? 1 : spec.q;
+  const int kt = STACKED ? z : 0;  // the table entry of kernel tile 0
   float (*ks)[CN][CM] = reinterpret_cast<float (*)[CN][CM]>(smem_raw + sizeof(ColsSmem<TCB>));
   float (*ws)[TCB] = reinterpret_cast<float (*)[TCB]>(&ks[q][0][0]);
   const int tid = threadIdx.x, rg = tid / CCG, cg = tid % CCG;
@@ -418,10 +378,11 @@ kernel_matvec_cols_kernel(const float* __restrict__ a, const float* __restrict__
     }
   if (a_once) stage_as(0, d);
   __syncthreads();  // tab
-  for (int idx = tid; idx < q * TCB; idx += CTHREADS) {
-    const int k = idx / TCB, c = idx % TCB;
-    ws[k][c] = c < tc ? (w ? w[(int64_t)k * t + c0 + c] : S.tab.w[k]) : 0.0f;
-  }
+  if (!STACKED)
+    for (int idx = tid; idx < q * TCB; idx += CTHREADS) {
+      const int k = idx / TCB, c = idx % TCB;
+      ws[k][c] = c < tc ? (w ? w[(int64_t)k * t + c0 + c] : S.tab.w[k]) : 0.0f;
+    }
 
   // The copy pipeline.  A unit is one B slab, with the V tile on a tile's
   // first slab; unit u + 1 is in flight while unit u is computed on.
@@ -523,7 +484,7 @@ kernel_matvec_cols_kernel(const float* __restrict__ a, const float* __restrict__
           ac1[i][0] = L1ACC ? S.pair[1][h + i][tid] : 0.0f;
           av[i] = DOTACC ? S.a2[rg * CRO + h + i] : 0.0f;
         }
-        tile_map(S.tab.kid[k], kv, ac, ac1, av, bv, S.tab.mc[k]);
+        tile_map(S.tab.kid[kt + k], kv, ac, ac1, av, bv, S.tab.mc[kt + k]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           kv[i][0] = live ? kv[i][0] : 0.0f;
@@ -537,19 +498,20 @@ kernel_matvec_cols_kernel(const float* __restrict__ a, const float* __restrict__
 
     // o += K_k (V * w_k), KG kernels at a time: per B row, CO / 2 float2 of
     // V and, for each kernel, CRO / 4 float4 of K_k feed CRO x CO FMAs; the
-    // weights of the group's kernels stay in registers
+    // weights of the group's kernels stay in registers (STACKED: o += K_z V)
 #pragma unroll 1
     for (int kb = 0; kb < q; kb += KG) {
       float wk[KG][CO];
+      if (!STACKED)
 #pragma unroll
-      for (int g = 0; g < KG; ++g)
+        for (int g = 0; g < KG; ++g)
 #pragma unroll
-        for (int u = 0; u < CO / 2; ++u) {
-          const float2 x = kb + g < q ? *reinterpret_cast<const float2*>(&ws[kb + g][cg * CO + 2 * u])
-                                      : make_float2(0.0f, 0.0f);
-          wk[g][2 * u] = x.x;
-          wk[g][2 * u + 1] = x.y;
-        }
+          for (int u = 0; u < CO / 2; ++u) {
+            const float2 x = kb + g < q ? *reinterpret_cast<const float2*>(&ws[kb + g][cg * CO + 2 * u])
+                                        : make_float2(0.0f, 0.0f);
+            wk[g][2 * u] = x.x;
+            wk[g][2 * u + 1] = x.y;
+          }
       const float* vp = &S.vraw[vb][0][cg * CO];
 #pragma unroll 1
       for (int j = 0; j < CN; ++j) {
@@ -572,7 +534,8 @@ kernel_matvec_cols_kernel(const float* __restrict__ a, const float* __restrict__
           }
           float vw[CO];
 #pragma unroll
-          for (int c = 0; c < CO; ++c) vw[c] = BF16 ? round_bf16(vv[c] * wk[g][c]) : vv[c] * wk[g][c];
+          for (int c = 0; c < CO; ++c)
+            vw[c] = STACKED ? vv[c] : BF16 ? round_bf16(vv[c] * wk[g][c]) : vv[c] * wk[g][c];
 #pragma unroll
           for (int i = 0; i < CRO; ++i)
 #pragma unroll
@@ -592,130 +555,291 @@ kernel_matvec_cols_kernel(const float* __restrict__ a, const float* __restrict__
       const int col = cg * CO + c;
       if (col >= tc) continue;
       float* dst = out + row * t + c0 + col;
-      *dst = accumulate ? *dst + o[i][c] : o[i][c];
+      *dst = !STACKED && accumulate ? *dst + o[i][c] : o[i][c];
     }
   }
 }
 
-// out (q, m, t): out[k] = K_k(A, B) @ V for the q <= QC kernels of `spec`.
-template <typename T, bool DOTACC, bool L1ACC, int TC>
-__global__ void __launch_bounds__(THREADS)
-kernel_components_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                         const T* __restrict__ v, float* __restrict__ out, int64_t m,
-                         int64_t n, int d, int t, MultiSpec spec) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  __shared__ __align__(16) float As[DC][TM];
-  __shared__ __align__(16) float Bs[DC][TN];
-  __shared__ __align__(16) float Vs[TC][TN];
-  __shared__ __align__(16) float a2[TM];
-  __shared__ __align__(16) float b2[TN];
-  __shared__ MultiTable tab;
-  const int rg = threadIdx.x / LANES, lane = threadIdx.x % LANES;
-  const int c0 = blockIdx.y * TC;
-  const int tc = min(TC, t - c0);
-  const int q = spec.q;
+template <bool BF16, bool DOTACC, bool L1ACC, int CO>
+__global__ void __launch_bounds__(CTHREADS, 6)
+kernel_matvec_cols_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                          const float* __restrict__ v, const float* __restrict__ w,
+                          float* __restrict__ out, int64_t m, int64_t n, int d, int t,
+                          int cw, MultiSpec spec, bool v16, bool accumulate) {
+  cols_body<BF16, DOTACC, L1ACC, CO, false>(a, b, v, w, out, m, n, d, t, cw, spec, v16,
+                                            accumulate, 0);
+}
 
+// out (q, m, t): out[z] = K_z(A, B) @ V for the q <= QC kernels of `spec`,
+// grid.z = q; a block forms only its kernel's family (the kernel's id picks
+// the body, uniformly across the block).
+template <bool BF16, int CO>
+__global__ void __launch_bounds__(CTHREADS, 6)
+kernel_components_cols_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                              const float* __restrict__ v, float* __restrict__ out, int64_t m,
+                              int64_t n, int d, int t, int cw, MultiSpec spec, bool v16) {
+  const int z = blockIdx.z;
+  int kid = K_RBF;
+#pragma unroll
+  for (int i = 0; i < QMAX; ++i)
+    if (i == z) kid = spec.kid[i];
+  float* oz = out + (int64_t)z * m * t;
+  if (family_of(kid) == F_L1)
+    cols_body<BF16, false, true, CO, true>(a, b, v, nullptr, oz, m, n, d, t, cw, spec, v16,
+                                           false, z);
+  else
+    cols_body<BF16, true, false, CO, true>(a, b, v, nullptr, oz, m, n, d, t, cw, spec, v16,
+                                           false, z);
+}
+
+// ---------------------------------------------------------------------------
+// The weighted block: out (m, n) (+)= sum_k w_k K_k(A, B), static weights.
+// A and B arrive packed (t1::pack_b without v): rows of P floats, the NF
+// feature slots (or all features, padded to a multiple of DS) and the
+// squared norm in slot P - 2, zero rows past the end.  Square warp tiles
+// of BWR rows x BWS columns; lane l owns columns 4l .. 4l + 3 of its tile.
+// ---------------------------------------------------------------------------
+
+constexpr int BTHREADS = 128;
+constexpr int BWARPS = BTHREADS / 32;
+constexpr int BR = 4;           // A rows of a group
+constexpr int BC = 4;           // columns a lane owns: one float4 of an output row
+constexpr int BWS = 32 * BC;    // 128 columns a warp tile
+constexpr int BWR = BWS;        // rows a warp tile: square, for the mirrored copy
+constexpr int BCH = 32;         // rows of a tile the mirrored copy stages at a time
+// the symmetric path's shared memory: each warp's BWS x BCH transposed chunk
+constexpr size_t BSYM_SMEM = sizeof(float) * BWARPS * BWS * BCH;
+
+// Floats of a packed row (t1::row_floats for the register widths, the
+// features padded to a multiple of DS plus one chunk above DCAP), and the
+// packed rows of an operand of x rows (a multiple of the tile).
+inline int block_stride(int d) {
+  return d <= t1::DCAP ? t1::row_floats(t1::nf_bucket(d)) : (d + t1::DS - 1) / t1::DS * t1::DS + 4;
+}
+inline int64_t block_rows(int64_t x) { return (x + BWS - 1) / BWS * BWS; }
+
+// Floats of the scratch a weighted-block launch packs A (m rows) and, unless
+// `same`, B (n rows) into.
+extern "C" long long kernel_block_multi_scratch_floats(long long m, long long n, int d,
+                                                        int same) {
+  if (m < 0 || n < 0 || d < 1) return 0;
+  return (long long)((block_rows(m) + (same ? 0 : block_rows(n))) * block_stride(d));
+}
+
+// The NF feature slots and the norm of a packed row (P = row_floats(NF)),
+// read as float4 through the read-only path.
+template <int NF>
+__device__ __forceinline__ void load_packed(float (&f)[NF], float& nrm, const float* row) {
+  constexpr int P = t1::row_floats(NF);
+  float x[P];
+#pragma unroll
+  for (int c = 0; c < P / 4; ++c) {
+    const float4 y = __ldg(reinterpret_cast<const float4*>(row) + c);
+    x[4 * c] = y.x; x[4 * c + 1] = y.y; x[4 * c + 2] = y.z; x[4 * c + 3] = y.w;
+  }
+#pragma unroll
+  for (int k = 0; k < NF; ++k) f[k] = x[k];
+  nrm = x[P - 2];
+}
+
+// The DS features from feature k0 of a packed row (the slab loop).
+__device__ __forceinline__ void load_slab(float (&f)[t1::DS], const float* row) {
+#pragma unroll
+  for (int c = 0; c < t1::DS / 4; ++c) {
+    const float4 y = __ldg(reinterpret_cast<const float4*>(row) + c);
+    f[4 * c] = y.x; f[4 * c + 1] = y.y; f[4 * c + 2] = y.z; f[4 * c + 3] = y.w;
+  }
+}
+
+// ks[r][c] += w K_KID(a_r, b_c) over a group's BR x BC pairs.  PRE: acc
+// holds the clamped l2 distance already (no dot / cos kernel in the launch).
+template <int KID, bool PRE>
+__device__ __forceinline__ void block_group(float (&ks)[BR][BC], const float (&acc)[BR][BC],
+                                            const float (&acc1)[BR][BC], const float (&a2)[BR],
+                                            const float (&b2)[BC], float w, const MapConst& mc) {
+  constexpr int FAM = family_of(KID);
+#pragma unroll
+  for (int r = 0; r < BR; ++r)
+#pragma unroll
+    for (int c = 0; c < BC; ++c) {
+      const float base = FAM == F_L2 ? (PRE ? acc[r][c]
+                                            : fmaxf(fmaf(-2.0f, acc[r][c], a2[r] + b2[c]), 0.0f))
+                       : FAM == F_L1 ? acc1[r][c]
+                                     : base_value<FAM>(acc[r][c], a2[r], b2[c]);
+      ks[r][c] = fmaf(w, t1::kernel_map_t1<KID>(base, mc), ks[r][c]);
+    }
+}
+
+// out (m, n) (+)= sum_k w_k K_k over `tiles` warp tiles (`strips` column
+// strips a row band), walked by every warp of a persistent grid.  DOTACC /
+// L1ACC: the accumulators to form; PRE: every kernel of the dot accumulator
+// is an l2 kernel (the sum starts at -||a||^2 / 2 and the distance is formed
+// once).  NF: feature slots in registers (SLAB: DS a unit, d > DCAP).  vec4:
+// n % 4 == 0 and out 16-byte aligned.  sym (A and B the same rows, vec4):
+// only the tiles on and above the diagonal are computed, and each one above
+// it is also written transposed, BCH rows at a time through the warp's
+// chunk of the dynamic shared memory (BSYM_SMEM bytes).
+template <bool DOTACC, bool L1ACC, bool PRE, int NF, bool SLAB>
+__global__ void __launch_bounds__(BTHREADS, (NF <= 9 && !SLAB) ? 3 : 1)
+kernel_block_multi_kernel(const float* __restrict__ ap, const float* __restrict__ bp,
+                          float* __restrict__ out, int64_t m, int64_t n, int d, int P,
+                          int64_t strips, int64_t tiles, MultiSpec spec, bool vec4, bool sym,
+                          bool accumulate) {
+  extern __shared__ __align__(16) float4 block_smem[];
+  __shared__ MultiTable tab;
   load_table(tab, spec);
   __syncthreads();
-
-  float o[QC][RM][TC] = {};
-  sweep_b<T, DOTACC, L1ACC, TC>(
-      a, b, v, m, n, d, t, c0, tc, 0, n, As, Bs, Vs, a2, b2,
-      [&](int64_t, const float (&acc)[RM][JN], const float (&acc1)[RM][JN],
-          const float (&av)[RM], const float (&bv)[JN], int cols) {
+  const int q = spec.q;
+  const int lane = threadIdx.x % 32;
+  // the warp's transposed chunk: BWS rows of BCH floats (BCH / 4 = 8
+  // float4, one 128-byte line), float4 u of row j at u ^ ((j / 4) % 8): no
+  // bank conflict for a lane's stores (eight-way unswizzled) nor the reads
+  float4* tch = block_smem + (threadIdx.x / 32) * (BWS * BCH / 4);
+  const int64_t step = (int64_t)gridDim.x * BWARPS;
+  for (int64_t tile = (int64_t)blockIdx.x * BWARPS + threadIdx.x / 32; tile < tiles;
+       tile += step) {
+    const int64_t bi = tile / strips, bj = tile % strips;
+    if (sym && bi > bj) continue;  // written transposed by tile (bj, bi)
+    const bool mirror = sym && bi < bj;
+    const int64_t r0 = bi * BWR;
+    const int64_t c0 = bj * BWS + BC * lane;  // the lane's first column
+    // the lane's B rows: all feature slots (SLAB: reloaded per group) and norms
+    float bf[BC][NF], b2[BC];
 #pragma unroll
-        for (int k = 0; k < QC; ++k) {
-          if (k >= q) break;
-          float kv[RM][JN];
-          tile_map(tab.kid[k], kv, acc, acc1, av, bv, tab.mc[k]);
-          mask_cols(kv, lane, cols);
-          if (BF16) round_tile(kv);
+    for (int c = 0; c < BC; ++c) {
+      const float* row = bp + (c0 + c) * P;
+      if constexpr (!SLAB) load_packed<NF>(bf[c], b2[c], row);
+      else b2[c] = __ldg(reinterpret_cast<const float4*>(row + P - 4)).z;
+    }
+#pragma unroll 1
+    for (int g = 0; g < BWR; g += BR) {
+      const int64_t i0 = r0 + g;
+      if (i0 >= m) break;  // the rest of the band lies past the last row
+      float acc[BR][BC], acc1[BR][BC], a2[BR];
+      if constexpr (!SLAB) {
 #pragma unroll
-          for (int c = 0; c < TC; ++c) {
-            const float4 v4 = *reinterpret_cast<const float4*>(&Vs[c][lane * JN]);
+        for (int r = 0; r < BR; ++r) {
+          float af[NF];
+          load_packed<NF>(af, a2[r], ap + (i0 + r) * P);
+          const float init = PRE ? -0.5f * a2[r] : 0.0f;
 #pragma unroll
-            for (int i = 0; i < RM; ++i)
-              o[k][i][c] = fmaf(kv[i][3], v4.w, fmaf(kv[i][2], v4.z,
-                           fmaf(kv[i][1], v4.y, fmaf(kv[i][0], v4.x, o[k][i][c]))));
+          for (int c = 0; c < BC; ++c) {
+            acc[r][c] = init;
+            acc1[r][c] = 0.0f;
+#pragma unroll
+            for (int k = 0; k < NF; ++k) {
+              if (DOTACC) acc[r][c] = fmaf(af[k], bf[c][k], acc[r][c]);
+              if (L1ACC) acc1[r][c] += fabsf(af[k] - bf[c][k]);
+            }
           }
         }
-      });
-
+      } else {
 #pragma unroll
-  for (int k = 0; k < QC; ++k) reduce_lanes(o[k]);
-  if (lane == 0) {
-    const int64_t r0 = (int64_t)blockIdx.x * TM;
+        for (int r = 0; r < BR; ++r) {
+          a2[r] = __ldg(reinterpret_cast<const float4*>(ap + (i0 + r) * P + P - 4)).z;
 #pragma unroll
-    for (int k = 0; k < QC; ++k) {
-      if (k >= q) break;
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int64_t row = r0 + rg * RM + i;
-        if (row < m)
-          for (int c = 0; c < tc; ++c) out[((int64_t)k * m + row) * t + c0 + c] = o[k][i][c];
-      }
-    }
-  }
-}
-
-constexpr int STRIP = 8;  // B tiles per block of the block kernel
-
-// out (m, n) (+)= sum_k w_k K_k(A, B), static weights in `spec`; a block
-// owns TM rows x STRIP B tiles of the output.
-template <typename T, bool DOTACC, bool L1ACC>
-__global__ void __launch_bounds__(THREADS)
-kernel_block_multi_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                          float* __restrict__ out, int64_t m, int64_t n, int d,
-                          MultiSpec spec, bool vec4, bool accumulate) {
-  __shared__ __align__(16) float As[DC][TM];
-  __shared__ __align__(16) float Bs[DC][TN];
-  __shared__ __align__(16) float a2[TM];
-  __shared__ __align__(16) float b2[TN];
-  __shared__ MultiTable tab;
-  const int rg = threadIdx.x / LANES, lane = threadIdx.x % LANES;
-  const int64_t r0 = (int64_t)blockIdx.x * TM;
-  const int64_t c_begin = (int64_t)blockIdx.y * (STRIP * TN);
-  const int64_t c_end = n - c_begin < STRIP * TN ? n : c_begin + STRIP * TN;
-  const int q = spec.q;
-
-  load_table(tab, spec);  // read after the sweep's first __syncthreads()
-  sweep_b<T, DOTACC, L1ACC, 0>(
-      a, b, static_cast<const T*>(nullptr), m, n, d, 1, 0, 0, c_begin, c_end, As, Bs, nullptr,
-      a2, b2,
-      [&](int64_t j0, const float (&acc)[RM][JN], const float (&acc1)[RM][JN],
-          const float (&av)[RM], const float (&bv)[JN], int) {
-        float ksum[RM][JN] = {};
-#pragma unroll 1
-        for (int k = 0; k < q; ++k) {
-          float kv[RM][JN];
-          tile_map(tab.kid[k], kv, acc, acc1, av, bv, tab.mc[k]);
-          const float wk = tab.w[k];
-#pragma unroll
-          for (int i = 0; i < RM; ++i)
-#pragma unroll
-            for (int j = 0; j < JN; ++j) ksum[i][j] = fmaf(wk, kv[i][j], ksum[i][j]);
+          for (int c = 0; c < BC; ++c) {
+            acc[r][c] = PRE ? -0.5f * a2[r] : 0.0f;
+            acc1[r][c] = 0.0f;
+          }
         }
-
-        const int64_t col = j0 + lane * JN;
+#pragma unroll 1
+        for (int s = 0; s < (d + NF - 1) / NF; ++s) {
 #pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const int64_t row = r0 + rg * RM + i;
-          if (row >= m) continue;
-          float* dst = out + row * n + col;
-          if (vec4 && col + JN <= n) {
-            float4 s = make_float4(ksum[i][0], ksum[i][1], ksum[i][2], ksum[i][3]);
+          for (int c = 0; c < BC; ++c) load_slab(bf[c], bp + (c0 + c) * P + s * NF);
+#pragma unroll
+          for (int r = 0; r < BR; ++r) {
+            float af[NF];
+            load_slab(af, ap + (i0 + r) * P + s * NF);
+#pragma unroll
+            for (int c = 0; c < BC; ++c)
+#pragma unroll
+              for (int k = 0; k < NF; ++k) {
+                if (DOTACC) acc[r][c] = fmaf(af[k], bf[c][k], acc[r][c]);
+                if (L1ACC) acc1[r][c] += fabsf(af[k] - bf[c][k]);
+              }
+          }
+        }
+      }
+      if (DOTACC && PRE)
+#pragma unroll
+        for (int r = 0; r < BR; ++r)
+#pragma unroll
+          for (int c = 0; c < BC; ++c) acc[r][c] = fmaxf(fmaf(-2.0f, acc[r][c], b2[c]), 0.0f);
+
+      // per kernel: its id, map constants and weight into registers, the
+      // switch once for the group's 16 pairs
+      float ks[BR][BC] = {};
+#pragma unroll 1
+      for (int k = 0; k < q; ++k) {
+        const MapConst mc = tab.mc[k];
+        const float wk = tab.w[k];
+        switch (tab.kid[k]) {
+          case K_RBF: block_group<K_RBF, PRE>(ks, acc, acc1, a2, b2, wk, mc); break;
+          case K_LAPLACIAN: block_group<K_LAPLACIAN, false>(ks, acc, acc1, a2, b2, wk, mc); break;
+          case K_MATERN52: block_group<K_MATERN52, PRE>(ks, acc, acc1, a2, b2, wk, mc); break;
+          case K_LINEAR: block_group<K_LINEAR, false>(ks, acc, acc1, a2, b2, wk, mc); break;
+          case K_POLYNOMIAL: block_group<K_POLYNOMIAL, false>(ks, acc, acc1, a2, b2, wk, mc); break;
+          case K_SIGMOID: block_group<K_SIGMOID, false>(ks, acc, acc1, a2, b2, wk, mc); break;
+          default: block_group<K_COSINE, false>(ks, acc, acc1, a2, b2, wk, mc); break;
+        }
+      }
+
+      // each output row of the warp's strip: one float4 a lane, 512
+      // consecutive bytes, streamed past the L2
+#pragma unroll
+      for (int r = 0; r < BR; ++r) {
+        const int64_t row = i0 + r;
+        if (row >= m) break;
+        float* dst = out + row * n + c0;
+        if (vec4) {
+          if (c0 < n) {
+            float4 s = make_float4(ks[r][0], ks[r][1], ks[r][2], ks[r][3]);
             if (accumulate) {
               const float4 prev = *reinterpret_cast<const float4*>(dst);
               s.x += prev.x; s.y += prev.y; s.z += prev.z; s.w += prev.w;
             }
-            *reinterpret_cast<float4*>(dst) = s;
-          } else {
-#pragma unroll
-            for (int j = 0; j < JN; ++j)
-              if (col + j < n) dst[j] = accumulate ? dst[j] + ksum[i][j] : ksum[i][j];
+            __stcs(reinterpret_cast<float4*>(dst), s);
           }
+        } else {
+#pragma unroll
+          for (int c = 0; c < BC; ++c)
+            if (c0 + c < n) __stcs(dst + c, accumulate ? dst[c] + ks[r][c] : ks[r][c]);
         }
-      });
+      }
+
+      // the mirrored copy: rows c0 .. c0 + 3, columns i0 .. i0 + 3 hold the
+      // group's values transposed; every BCH rows the warp writes the chunk
+      // out as BWS rows of BCH floats (row bj * BWS + j, columns from the
+      // chunk's first row; the tile above the diagonal has all BWR rows)
+      if (mirror) {
+        const int ig = g % BCH / BR;
+#pragma unroll
+        for (int c = 0; c < BC; ++c)
+          tch[(BC * lane + c) * (BCH / 4) + (ig ^ (lane % 8))] =
+              make_float4(ks[0][c], ks[1][c], ks[2][c], ks[3][c]);
+        if (ig == BCH / BR - 1) {
+          __syncwarp();
+          const int u = lane % 8;
+#pragma unroll 4
+          for (int it = 0; it < BWS / 4; ++it) {
+            const int j = 4 * it + lane / 8;
+            const int64_t row = bj * BWS + j;
+            if (row < n) {
+              float4 val = tch[j * (BCH / 4) + (u ^ (j / 4 % 8))];
+              float* dst = out + row * n + (i0 + BR - BCH) + 4 * u;
+              if (accumulate) {
+                const float4 prev = *reinterpret_cast<const float4*>(dst);
+                val.x += prev.x; val.y += prev.y; val.z += prev.z; val.w += prev.w;
+              }
+              __stcs(reinterpret_cast<float4*>(dst), val);
+            }
+          }
+          __syncwarp();
+        }
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -857,9 +981,12 @@ extern "C" int kernel_matvec_multi_cols_launch(const float* a, const float* b, c
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// out: (q, m, t) f32, q <= QC.
-extern "C" int kernel_matvec_components_launch(const void* a, const void* b, const void* v,
-                                               void* out, long long m, long long n, int d,
+// out: (q, m, t) f32, q <= QC, on the column path with grid.z = q.  a, b, v
+// f32 (bf16 != 0: holding bf16-rounded values, and each K_i is rounded to
+// bf16 before its product with V).  The columns are split as the weighted
+// column path splits them; t = 1 runs there too (no path sends it).
+extern "C" int kernel_matvec_components_launch(const float* a, const float* b, const float* v,
+                                               float* out, long long m, long long n, int d,
                                                int t, int q, const int* kids,
                                                const float* sigmas, int bf16, void* stream) {
   if (m < 0 || n < 0 || d < 1 || t < 1) return (int)cudaErrorInvalidValue;
@@ -867,51 +994,123 @@ extern "C" int kernel_matvec_components_launch(const void* a, const void* b, con
   bool dot, l1;
   if (!make_spec(spec, q, QC, kids, sigmas, nullptr, &dot, &l1)) return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
-  const int tcols = t == 1 ? 1 : TCC;
-  const int gy = (t + tcols - 1) / tcols;
+  constexpr int TCB_WIDE = CCG * CO_WIDE;
+  const int gy = (t + TCB_WIDE - 1) / TCB_WIDE;
   if (gy > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((m + TM - 1) / TM), (unsigned)gy);
+  const int cw = ((t + gy - 1) / gy + 3) / 4 * 4;  // columns a block owns
+  const bool mid = cw <= CCG * CO_MID;
+  const dim3 grid((unsigned)((m + CM - 1) / CM), (unsigned)gy, (unsigned)q);
+  const bool v16 = t % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define PK_LAUNCH(T, DA, LA)                                                                  \
-  if (t == 1)                                                                                 \
-    kernel_components_kernel<T, DA, LA, 1><<<grid, THREADS, 0, s>>>(                          \
-        (const T*)a, (const T*)b, (const T*)v, (float*)out, m, n, d, t, spec);                \
-  else                                                                                        \
-    kernel_components_kernel<T, DA, LA, TCC><<<grid, THREADS, 0, s>>>(                        \
-        (const T*)a, (const T*)b, (const T*)v, (float*)out, m, n, d, t, spec)
+  // one kernel's tile and no weight rows: under the 48 KB a block gets by default
+#define PK_LAUNCH_CO(BF, CO)                                                      \
+  do {                                                                            \
+    const size_t bytes = cols_smem_bytes<CCG * CO>(1);                            \
+    kernel_components_cols_kernel<BF, CO><<<grid, CTHREADS, bytes, s>>>(          \
+        a, b, v, out, m, n, d, t, cw, spec, v16);                                 \
+  } while (0)
+#define PK_LAUNCH(BF)            \
+  if (mid)                       \
+    PK_LAUNCH_CO(BF, CO_MID);    \
+  else                           \
+    PK_LAUNCH_CO(BF, CO_WIDE)
   if (bf16) {
-    PK_DISPATCH_FAMILIES(PK_LAUNCH, __nv_bfloat16);
+    PK_LAUNCH(true);
   } else {
-    PK_DISPATCH_FAMILIES(PK_LAUNCH, float);
+    PK_LAUNCH(false);
   }
 #undef PK_LAUNCH
+#undef PK_LAUNCH_CO
   return (int)cudaGetLastError();
 }
 
+// Pack x (rows live rows of d features, T) into `dst` as block_rows(rows)
+// packed rows of P floats with their norms.
+template <typename T>
+static cudaError_t pack_rows(const T* x, float* dst, int64_t rows, int d, int P, cudaStream_t s) {
+  const int64_t padded = block_rows(rows);
+  constexpr int PT = 256;
+  t1::pack_b<T><<<(unsigned)((padded + PT - 1) / PT), PT, 0, s>>>(
+      x, static_cast<const T*>(nullptr), dst, rows, padded, d, P, 1.0f);
+  return cudaGetLastError();
+}
+
+template <bool DA, bool LA, bool PRE, int NF, bool SLAB>
+static cudaError_t launch_block_multi(const float* ap, const float* bp, float* out, int64_t m,
+                                      int64_t n, int d, int P, const MultiSpec& spec, bool vec4,
+                                      bool accumulate, cudaStream_t s) {
+  const auto kernel = kernel_block_multi_kernel<DA, LA, PRE, NF, SLAB>;
+  const int64_t strips = (n + BWS - 1) / BWS, tiles = strips * ((m + BWR - 1) / BWR);
+  // the symmetric path: the same rows as A and B, float4 stores
+  const bool sym = ap == bp && m == n && vec4;
+  const size_t smem = sym ? BSYM_SMEM : 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BTHREADS, smem);
+  if (err != cudaSuccess) return err;
+  // a persistent grid: as many blocks as fit on the card at once, or fewer
+  // when there are fewer warp tiles
+  const int64_t blocks = std::min<int64_t>((tiles + BWARPS - 1) / BWARPS,
+                                           (int64_t)sms * std::max(per_sm, 1));
+  kernel<<<(unsigned)blocks, BTHREADS, smem, s>>>(ap, bp, out, m, n, d, P, strips, tiles, spec,
+                                                  vec4, sym, accumulate);
+  return cudaGetLastError();
+}
+
 // out: (m, n) f32; weights: host (q,).  accumulate != 0 adds to `out`.
+// `scratch`: kernel_block_multi_scratch_floats(m, n, d, same) floats of
+// device memory, where A and B are packed with their norms; B is packed
+// once with A when it is the same operand (b == a and n == m).
 extern "C" int kernel_block_multi_launch(const void* a, const void* b, void* out, long long m,
                                          long long n, int d, int q, const int* kids,
                                          const float* sigmas, const float* weights, int bf16,
-                                         int accumulate, void* stream) {
+                                         int accumulate, void* scratch, void* stream) {
   if (m < 0 || n < 0 || d < 1 || !weights) return (int)cudaErrorInvalidValue;
   MultiSpec spec;
   bool dot, l1;
   if (!make_spec(spec, q, QMAX, kids, sigmas, weights, &dot, &l1))
     return (int)cudaErrorInvalidValue;
   if (m == 0 || n == 0) return 0;
-  const long long gy = (n + STRIP * TN - 1) / (STRIP * TN);
-  if (gy > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((m + TM - 1) / TM), (unsigned)gy);
-  const bool vec4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (!scratch) return (int)cudaErrorInvalidValue;
+  bool pre = true;  // every kernel of the dot accumulator is an l2 kernel
+  for (int i = 0; i < q; ++i)
+    if (family_of(kids[i]) == F_DOT || family_of(kids[i]) == F_COS) pre = false;
+  const bool same = a == b && m == n;
+  const int P = block_stride(d);
+  float* ap = (float*)scratch;
+  float* bp = same ? ap : ap + block_rows(m) * P;
   cudaStream_t s = (cudaStream_t)stream;
-#define PK_LAUNCH(T, DA, LA)                                                              \
-  kernel_block_multi_kernel<T, DA, LA><<<grid, THREADS, 0, s>>>(                          \
-      (const T*)a, (const T*)b, (float*)out, m, n, d, spec, vec4, accumulate != 0)
-  if (bf16) {
-    PK_DISPATCH_FAMILIES(PK_LAUNCH, __nv_bfloat16);
+  cudaError_t err = bf16 ? pack_rows((const __nv_bfloat16*)a, ap, m, d, P, s)
+                         : pack_rows((const float*)a, ap, m, d, P, s);
+  if (err == cudaSuccess && !same)
+    err = bf16 ? pack_rows((const __nv_bfloat16*)b, bp, n, d, P, s)
+               : pack_rows((const float*)b, bp, n, d, P, s);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+#define PK_NF(NF, SLAB)                                                                      \
+  err = launch_block_multi<DA, LA, PR, NF, SLAB>(ap, bp, (float*)out, m, n, d, P, spec, vec4, \
+                                                 accumulate != 0, s)
+#define PK_FAM(DA_, LA_, PR_)    \
+  do {                           \
+    constexpr bool DA = DA_;     \
+    constexpr bool LA = LA_;     \
+    constexpr bool PR = PR_;     \
+    PK_T1_DISPATCH_NF(d, PK_NF)  \
+  } while (0)
+  if (!dot) {
+    PK_FAM(false, true, false);
+  } else if (l1) {
+    if (pre) PK_FAM(true, true, true);
+    else PK_FAM(true, true, false);
   } else {
-    PK_DISPATCH_FAMILIES(PK_LAUNCH, float);
+    if (pre) PK_FAM(true, false, true);
+    else PK_FAM(true, false, false);
   }
-#undef PK_LAUNCH
-  return (int)cudaGetLastError();
+#undef PK_FAM
+#undef PK_NF
+  return (int)err;
 }

@@ -87,7 +87,8 @@ inline size_t smem_bytes(int nf, bool slab) {
 }
 
 // Row r of the (n_pad, P) packed buffer from row r of B (n, d) and v (n,);
-// the norm slot holds norm_scale * ||b_r||^2.
+// the norm slot holds norm_scale * ||b_r||^2.  With v null the v slot is 0
+// (the weighted block packs A and B this way, kernel_multi.cu).
 template <typename T>
 __global__ void pack_b(const T* __restrict__ b, const T* __restrict__ v, float* __restrict__ out,
                        int64_t n, int64_t rows, int d, int P, float norm_scale) {
@@ -102,7 +103,7 @@ __global__ void pack_b(const T* __restrict__ b, const T* __restrict__ v, float* 
       s = fmaf(x, x, s);
     }
   s *= norm_scale;
-  const float vv = live ? to_f32(v[row]) : 0.0f;
+  const float vv = live && v ? to_f32(v[row]) : 0.0f;
   float4* dst = reinterpret_cast<float4*>(out + row * P);
   for (int c = 0; c < P; c += 4) {
     float e[4];

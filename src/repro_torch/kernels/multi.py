@@ -10,10 +10,9 @@ plain versions are ``repro_torch.kernels.ref.kernel_matvec_multi``,
 ``kernel_matvec_components`` and ``kernel_block_multi``.
 
 A launch takes at most :data:`QMAX` kernels (:data:`QMAX_COMPONENTS` for the
-stacked matvec, whose per-kernel accumulators live in registers).  A larger
-q is split into groups, launched in order on the current stream: the group
-outputs are summed (matvec, block) or concatenated (components).  Each
-launch adds one to its wrapper's count.
+stacked matvec).  A larger q is split into groups, launched in order on the
+current stream: the group outputs are summed (matvec, block) or concatenated
+(components).  Each launch adds one to its wrapper's count.
 """
 
 from __future__ import annotations
@@ -36,14 +35,15 @@ _SIGNATURES = {
     "kernel_matvec_multi_launch": [_P] * 5 + [_LL, _LL, _I, _I, _I] + [_P] * 3 + [_I, _I, _P, _P],
     "kernel_matvec_multi_cols_launch": [_P] * 5 + [_LL, _LL, _I, _I, _I] + [_P] * 3 + [_I, _I, _P],
     "kernel_matvec_components_launch": [_P] * 4 + [_LL, _LL, _I, _I, _I] + [_P] * 2 + [_I, _P],
-    "kernel_block_multi_launch": [_P] * 3 + [_LL, _LL, _I, _I] + [_P] * 3 + [_I, _I, _P],
+    "kernel_block_multi_launch": [_P] * 3 + [_LL, _LL, _I, _I] + [_P] * 3 + [_I, _I, _P, _P],
+    "kernel_block_multi_scratch_floats": [_LL, _LL, _I, _I],
 }
 
 
-def _fn(name: str):
+def _fn(name: str, restype=ctypes.c_int):
     fn = getattr(_build.load("kernel_multi"), name)
     fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 
@@ -165,14 +165,16 @@ def kernel_matvec_components_cuda(
     """Stacked K_i(a, b) @ v on the current stream (no synchronisation).
 
     a: (m, d), b: (n, d), v: (n,) | (n, t), CUDA, f32 or bf16 -> f32
-    (q, m) | (q, m, t).
+    (q, m) | (q, m, t).  The operands are cast to the policy's type, then
+    read as f32 (bf16 values widen exactly) by the column path, one kernel
+    a grid slice.
     """
     q = _check_spec(kernels, sigmas)
     check_operands(a, b, v)
     _check_ab(a, b)
     t = _check_v(v, b.shape[0])
     dt = torch.bfloat16 if precision == "bf16" else torch.float32
-    a, b, v = (x.to(dt).contiguous() for x in (a, b, v))
+    a, b, v = (x.to(dt).contiguous().float() for x in (a, b, v))
     m, d = a.shape
     n = b.shape[0]
     out = torch.empty((q, m, t), dtype=torch.float32, device=a.device)
@@ -202,25 +204,31 @@ def kernel_block_multi_cuda(
     """sum_i w_i K_i(a, b) materialised on the current stream.
 
     a: (m, d), b: (n, d), CUDA, f32 or bf16 -> (m, n) f32; ``weights`` q floats.
+    Each launch packs A and B with their norms into a scratch buffer first;
+    when ``b`` is ``a`` (a block of one point set, K_BB) they are packed once.
     """
     q = _check_spec(kernels, sigmas, weights)
     check_operands(a, b)
     _check_ab(a, b)
+    same = a is b
     dt = torch.bfloat16 if precision == "bf16" else torch.float32
-    a, b = (x.to(dt).contiguous() for x in (a, b))
+    a = a.to(dt).contiguous()
+    b = a if same else b.to(dt).contiguous()
     m, d = a.shape
     n = b.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if out.numel() == 0:  # nothing to launch
         return out
     fn = _fn("kernel_block_multi_launch")
+    size = _fn("kernel_block_multi_scratch_floats", _LL)(m, n, d, int(same))
+    scratch = torch.empty((size,), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         for g0 in range(0, q, QMAX):
             g = slice(g0, g0 + QMAX)
             ids, sig, w = _host_table(kernels[g], sigmas[g], weights[g])
             err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, d, len(ids), ids, sig, w,
-                     int(dt == torch.bfloat16), int(g0 > 0), stream)
+                     int(dt == torch.bfloat16), int(g0 > 0), scratch.data_ptr(), stream)
             _raise_on(err, "kernel_block_multi")
             kernel_block_multi_cuda.launches += 1
     return out

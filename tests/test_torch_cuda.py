@@ -27,7 +27,13 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.core.multikernel import WeightedSumKernelOperator  # noqa: E402
 from repro_torch.kernels.kernel_block import kernel_block_cuda  # noqa: E402
 from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda  # noqa: E402
-from repro_torch.kernels.multi import QMAX, QMAX_COMPONENTS, kernel_matvec_multi_cuda  # noqa: E402
+from repro_torch.kernels.multi import (  # noqa: E402
+    QMAX,
+    QMAX_COMPONENTS,
+    kernel_block_multi_cuda,
+    kernel_matvec_components_cuda,
+    kernel_matvec_multi_cuda,
+)
 
 F32_TOL = (2e-4, 2e-5)
 BF16_TOL = (0.05, 0.02)
@@ -277,4 +283,101 @@ def test_cuda_t1_sweep_is_deterministic(cuda_device, rng):
     for fn in (lambda: kernel_matvec_cuda(a, b, v, kernel="rbf", sigma=1.0, precision="f32"),
                lambda: kernel_matvec_multi_cuda(a, b, v, (0.5, 0.2, 0.3), kernels=kernels,
                                                 sigmas=sigmas, precision="f32")):
+        assert torch.equal(fn(), fn())
+
+
+#: the stacked matvec's combinations by q: l1 alone, l2 + l1, dot + cos (one
+#: full launch of QMAX_COMPONENTS) and five kernels (two launches)
+STACKED_CASES = {
+    1: (("laplacian",), (0.8,)),
+    3: MULTI_CASES["l2+l1"],
+    4: MULTI_CASES["dot+cos"],
+    5: (("rbf", "laplacian", "matern52", "cosine", "rbf"), (1.5, 0.8, 2.2, 1.0, 0.6)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [2, 100, 101, 161])
+@pytest.mark.parametrize("q", sorted(STACKED_CASES))
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_stacked_matvec_columns_match_plain(cuda_device, rng, t, q, precision):
+    """The stacked matvec on the column path (grid.z over the kernels) at
+    ragged m (70), n (301) and d (11): t = 2, the tune's rank 100, a ragged
+    101 and 161 (two column blocks); one launch per QMAX_COMPONENTS kernels."""
+    kernels, sigmas = STACKED_CASES[q]
+    a = _t(rng.standard_normal((70, 11)).astype(np.float32) / 3).to(cuda_device)
+    b = _t(rng.standard_normal((301, 11)).astype(np.float32) / 3).to(cuda_device)
+    v = _t(rng.standard_normal((301, t)).astype(np.float32)).to(cuda_device)
+    before = kernel_matvec_components_cuda.launches
+    got = kernel_matvec_components_cuda(a, b, v, kernels=kernels, sigmas=sigmas,
+                                        precision=precision)
+    torch.cuda.synchronize()
+    assert kernel_matvec_components_cuda.launches == before + -(-q // QMAX_COMPONENTS)
+    want = ops.ref.kernel_matvec_components(a, b, v, sigmas, kernels=kernels,
+                                            precision=precision).cpu().numpy()
+    assert got.shape == (q, 70, t)
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+
+
+#: (d, m, n) edges of the weighted block: n % 4 == 0 with a ragged last
+#: 128-column strip (float4 stores), m and n below one 64 x 128 warp tile,
+#: d = 1, the register cap 16, one above it (the slab loop) and 37
+BLOCK_EDGES = [(9, 130, 300), (9, 37, 50), (1, 200, 129), (16, 70, 260), (17, 65, 131),
+               (37, 130, 301)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m,n", BLOCK_EDGES)
+@pytest.mark.parametrize("case", sorted(MULTI_CASES))
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_weighted_block_edges_match_plain(cuda_device, rng, d, m, n, case, precision):
+    """The weighted block at its edges against the plain version, one launch
+    per QMAX kernels (q = 9: the second launch accumulates)."""
+    kernels, sigmas = MULTI_CASES[case]
+    a = _t((rng.standard_normal((m, d)) / np.sqrt(d)).astype(np.float32)).to(cuda_device)
+    b = _t((rng.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)).to(cuda_device)
+    w = tuple(float(x) for x in rng.dirichlet(np.ones(len(kernels))))
+    before = kernel_block_multi_cuda.launches
+    got = kernel_block_multi_cuda(a, b, kernels=kernels, sigmas=sigmas, weights=w,
+                                  precision=precision)
+    torch.cuda.synchronize()
+    assert kernel_block_multi_cuda.launches == before + -(-len(kernels) // QMAX)
+    want = ops.ref.kernel_block_multi(a, b, sigmas, w, kernels=kernels,
+                                      precision=precision).cpu().numpy()
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [132, 300])
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_weighted_block_of_one_point_set(cuda_device, rng, m, same, precision):
+    """K_w(a, a) with b the same tensor as a (the symmetric path: packed
+    once, the tiles above the diagonal also written transposed; q = 9, so
+    the second launch accumulates) and with b a copy of a (the full path)
+    agree with the plain version."""
+    kernels, sigmas = MULTI_CASES["q9"]
+    a = _t(rng.standard_normal((m, 9)).astype(np.float32) / 3).to(cuda_device)
+    w = tuple(float(x) for x in rng.dirichlet(np.ones(len(kernels))))
+    got = kernel_block_multi_cuda(a, a if same else a.clone(), kernels=kernels, sigmas=sigmas,
+                                  weights=w, precision=precision)
+    want = ops.ref.kernel_block_multi(a, a.clone(), sigmas, w, kernels=kernels,
+                                      precision=precision).cpu().numpy()
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+
+
+@pytest.mark.cuda
+def test_cuda_block_and_stacked_matvec_are_deterministic(cuda_device, rng):
+    """Two launches of the weighted block and of the stacked matvec on the
+    same inputs are bitwise equal (no atomics; a thread owns whole values)."""
+    x = _t(rng.standard_normal((3000, 9)).astype(np.float32)).to(cuda_device)
+    v = _t(rng.standard_normal((3000, 100)).astype(np.float32)).to(cuda_device)
+    kernels, sigmas = MULTI_CASES["l2+l1"]
+    for fn in (lambda: kernel_block_multi_cuda(x, x, kernels=kernels, sigmas=sigmas,
+                                               weights=(0.5, 0.2, 0.3), precision="f32"),
+               lambda: kernel_matvec_components_cuda(x, x, v, kernels=kernels, sigmas=sigmas,
+                                                     precision="f32")):
         assert torch.equal(fn(), fn())

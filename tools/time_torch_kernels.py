@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's CUDA kernels at the main path's shapes on the card.
 
-    PYTHONPATH=src python3 tools/time_torch_kernels.py [--label NAME]
+    PYTHONPATH=src python3 tools/time_torch_kernels.py [--label NAME] [--quick]
 
 ``kernel_matvec`` at (50,000 x 10^6, d = 9, t = 1) and ``kernel_block`` at
 (50,000 x 50,000, d = 9), rbf, f32, on the operands of ``chip_smoke.py``'s
@@ -19,7 +19,9 @@ weighted matvec
 Nystrom sketch of rank 100 with (q,) weights.  Each weighted-matvec time is
 printed beside its bound (``chip_smoke._bound_multi``).  Also the stacked
 matvec at the tune's sketch (20,000^2 x 100) and the weighted block at the
-refit's K_BB (50,000^2).  ``t1_parts_ms`` prices the parts of the t = 1
+refit's K_BB (50,000^2): as the refit calls it (b is a: the symmetric path),
+with b a copy of a (the full path) and for rbf alone.  ``--quick`` times only
+the column path, the stacked matvec and the weighted block.  ``t1_parts_ms`` prices the parts of the t = 1
 sweep at the solve's G_B, sigma 1: ``kernel_matvec`` per map (rbf f32 and
 bf16, laplacian, matern52, linear, cosine) and the weighted matvec with
 equal (q,) weights per combination (rbf, laplacian, matern52 alone,
@@ -61,6 +63,8 @@ REFIT_WEIGHTS = (0.665, 0.021, 0.314)
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="")
+    ap.add_argument("--quick", action="store_true",
+                    help="only the column path, the stacked matvec and the weighted block")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_torch_kernels: needs a CUDA card")
@@ -70,16 +74,22 @@ def main() -> None:
     def median_ms(fn):
         return chip_smoke._time_ms(fn, reps=7)
 
-    mv_ms = median_ms(lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=1.0, precision="f32"))
-    blk_ms = median_ms(lambda: kernel_block_cuda(xb, xb, kernel="rbf", sigma=1.0, precision="f32"))
-    small_ms = median_ms(lambda: kernel_matvec_cuda(q, x, z, kernel="rbf", sigma=1.0, precision="f32"))
-    xq = xb[:chip_smoke.N_TEST].contiguous()
-    pred_ms = median_ms(lambda: kernel_matvec_cuda(xq, x, z, kernel="rbf", sigma=1.0, precision="f32"))
     ks = chip_smoke.MK_KERNELS
     sg = (1.0,) * len(ks)
     w_refit = REFIT_WEIGHTS
+    xq = xb[:chip_smoke.N_TEST].contiguous()
+    report = {"label": args.label}
+    if not args.quick:
+        report["kernel_matvec_ms"] = median_ms(
+            lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=1.0, precision="f32"))
+        report["kernel_block_ms"] = median_ms(
+            lambda: kernel_block_cuda(xb, xb, kernel="rbf", sigma=1.0, precision="f32"))
+        report["kernel_matvec_predict_ms"] = median_ms(
+            lambda: kernel_matvec_cuda(xq, x, z, kernel="rbf", sigma=1.0, precision="f32"))
+        report["kernel_matvec_m64_ms"] = median_ms(
+            lambda: kernel_matvec_cuda(q, x, z, kernel="rbf", sigma=1.0, precision="f32"))
     t1 = {}
-    for label, rows in (("refit_gb", xb), ("refit_predict", xq)):
+    for label, rows in (() if args.quick else (("refit_gb", xb), ("refit_predict", xq))):
         ms = median_ms(lambda: kernel_matvec_multi_cuda(rows, x, z, w_refit, kernels=ks, sigmas=sg,
                                                         precision="f32"))
         bound = chip_smoke._bound_multi(rows.shape[0], x.shape[0], chip_smoke.D, 1, ks, "matvec")
@@ -105,26 +115,32 @@ def main() -> None:
                                                               precision="f32"))
     blk_multi_ms = median_ms(lambda: kernel_block_multi_cuda(xb, xb, kernels=ks, sigmas=sg,
                                                              weights=w_refit, precision="f32"))
+    xb_copy = xb.clone()
+    blk_copy_ms = median_ms(lambda: kernel_block_multi_cuda(xb, xb_copy, kernels=ks, sigmas=sg,
+                                                            weights=w_refit, precision="f32"))
+    blk_rbf_ms = median_ms(lambda: kernel_block_multi_cuda(xb, xb, kernels=("rbf",), sigmas=(1.0,),
+                                                           weights=(1.0,), precision="f32"))
     parts = {}
-    for k, precs in (("rbf", ("f32", "bf16")), ("laplacian", ("f32",)), ("matern52", ("f32",)),
-                     ("linear", ("f32",)), ("cosine", ("f32",))):
+    for k, precs in (() if args.quick else
+                     (("rbf", ("f32", "bf16")), ("laplacian", ("f32",)), ("matern52", ("f32",)),
+                      ("linear", ("f32",)), ("cosine", ("f32",)))):
         for prec in precs:
             parts[f"mv {k} {prec}"] = median_ms(
                 lambda: kernel_matvec_cuda(xb, x, z, kernel=k, sigma=1.0, precision=prec))
-    for kk, precs in ((("rbf",), ("f32",)), (("laplacian",), ("f32",)), (("matern52",), ("f32",)),
-                      (("rbf", "matern52"), ("f32",)), (("rbf", "laplacian"), ("f32",)),
-                      (ks, ("f32", "bf16"))):
+    for kk, precs in (() if args.quick else
+                      ((("rbf",), ("f32",)), (("laplacian",), ("f32",)), (("matern52",), ("f32",)),
+                       (("rbf", "matern52"), ("f32",)), (("rbf", "laplacian"), ("f32",)),
+                       (ks, ("f32", "bf16")))):
         w = tuple(1.0 / len(kk) for _ in kk)
         for prec in precs:
             parts[f"multi {'+'.join(kk)} {prec}"] = median_ms(
                 lambda: kernel_matvec_multi_cuda(xb, x, z, w, kernels=kk, sigmas=(1.0,) * len(kk),
                                                  precision=prec))
-    print(json.dumps({"label": args.label, "kernel_matvec_ms": mv_ms, "kernel_block_ms": blk_ms,
-                      "kernel_matvec_predict_ms": pred_ms, "kernel_matvec_m64_ms": small_ms,
-                      "kernel_matvec_multi_t1": t1, "kernel_matvec_multi_cols": cols,
-                      "kernel_matvec_components_ms": comp_ms, "kernel_block_multi_ms": blk_multi_ms,
-                      "t1_parts_ms": parts,
-                      "card": chip_smoke.nvidia_smi_line()}))
+    report.update({"kernel_matvec_multi_t1": t1, "kernel_matvec_multi_cols": cols,
+                   "kernel_matvec_components_ms": comp_ms, "kernel_block_multi_ms": blk_multi_ms,
+                   "kernel_block_multi_copy_ms": blk_copy_ms, "kernel_block_multi_rbf_ms": blk_rbf_ms,
+                   "t1_parts_ms": parts, "card": chip_smoke.nvidia_smi_line()})
+    print(json.dumps(report))
 
 if __name__ == "__main__":
     main()
