@@ -66,6 +66,27 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                prediction (10^4 x 10^6) and the residual pass's K_w w
                (10^6 x 10^6) are held against their plain versions in full;
                the final residual must be finite and below 1.
+  6b. baselines — the paper's baseline solvers through ``solve()`` on
+               phase 4's taxi data (n = 10^6 + 10^4 test points), settings
+               of benchmarks/bench_fig1_showdown.py:25-31 with the budgets
+               cut: pcg-nystrom (rank 100, 20 iterations), pcg-rpcholesky
+               (rank 50, 10), pcg-rff (rank 100, 400 features, 10), cg
+               (10), falkon (m = 20,000, 20), eigenpro (rank 100, subsample
+               1000, one epoch of 100 batches of 10^4) and direct (the first
+               20,000 rows).  One line a method: iterations, seconds, the
+               final relative residual (-1 for Falkon), CG's objective
+               1/2 w'(K + lam I)w - y'w, test RMSE, the path's launches and,
+               for pcg-nystrom, the sketch's time from CUDA events; pcg-rff
+               also times its thin SVD two ways.  Held against the plain
+               versions: 2,048 rows of the sketch's output, one RPCholesky
+               pivot column (10^6 x 1), Falkon's K(X, X_m) v and K(X_m, X) u,
+               EigenPro's batch gradient (10^4 x 10^6) and K_SB g (1000 x
+               10^4), direct's K (20,000^2).  It fails on a disagreement, an
+               unlaunched kernel of a path, a non-finite test RMSE (all but
+               EigenPro), a PCG-family residual that is not finite or an
+               objective not below its start of 0 (CG's residual norm is not
+               monotone; its objective is), and a direct residual not below
+               1.  EigenPro's residual and RMSE are recorded, not judged.
   7. time    — each kernel at the main path's shapes (CUDA events, median
                of 5 after warm-up) beside its plain version and its bound,
                with the kernel's result held against the plain one there;
@@ -73,7 +94,10 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                64 (the small-m case), and the multi-kernel kernels at the
                tune's, the refit's and the prediction's shapes; the two
                t = 1 G_B rows carry the special-function floor
-               (``sfu_floor_ms``) beside the bound.  The kernels line has
+               (``sfu_floor_ms``) beside the bound.  The baselines' shapes:
+               kernel_matvec at t = 100 (50,000 x 10^6, beside the sketch's
+               one 10^6-row launch from phase 6b), kernel_block at (10^6, 1)
+               and Falkon's two sweeps.  The kernels line has
                one row per (kernel, path shape), each with the launches of
                that path.
   8. launch  — ``python -m repro_torch.launch.krr_solve --method askotch
@@ -81,7 +105,7 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                --kernels rbf,laplacian,matern52 --n 4000`` on cuda; their
                JSON keys must be the JAX launchers'.
 
-Each of the paths in phases 4-6 sets every launch count to 0 just before
+Each of the paths in phases 4-6b sets every launch count to 0 just before
 it runs and reads the counts just after; a kernel of the path that was
 never launched fails the run.
 
@@ -834,6 +858,216 @@ def phase_refit(best: dict) -> dict:
     return rec
 
 
+#: the paper's baseline set (benchmarks/bench_fig1_showdown.py:25-31) with
+#: the iteration budgets cut to fit the run: (method, options, the kernels
+#: its path launches, what was cut beyond n 1e8 -> 1e6)
+FALKON_M, N_DIRECT, SKETCH_ROWS = 20_000, 20_000, 2_048
+EIGENPRO_BATCH, EIGENPRO_SUB = N_TRAIN // 100, 1000  # the reference's default batch
+PCG_FAMILY = ("pcg-nystrom", "pcg-rpcholesky", "pcg-rff", "cg")
+BASELINES = (
+    ("pcg-nystrom", {"rank": 100, "max_iters": 20}, ("kernel_matvec",), ""),
+    ("pcg-rpcholesky", {"rank": 50, "max_iters": 10}, ("kernel_matvec", "kernel_block"), ""),
+    ("pcg-rff", {"rank": 100, "max_iters": 10}, ("kernel_matvec",), ""),
+    ("cg", {"max_iters": 10}, ("kernel_matvec",), ""),
+    ("falkon", {"m": FALKON_M, "max_iters": 20}, ("kernel_matvec", "kernel_block"),
+     "; m 2e4: K_mm 1.6 GB and a 2e10-pair sweep a side"),
+    ("eigenpro", {"rank": 100, "subsample": EIGENPRO_SUB, "epochs": 1},
+     ("kernel_matvec", "kernel_block"), ""),
+    ("direct", {}, ("kernel_matvec", "kernel_block"),
+     "; n 1e6 -> 2e4 (the first rows): O(n^2) memory, O(n^3) time"),
+)
+
+
+def _sketch_probe(seen: dict):
+    """A stand-in for ``KernelOperator.sketch`` that records CUDA events
+    around the call and keeps its omega and output in ``seen``."""
+    import torch
+
+    from repro_torch.core.operator import KernelOperator
+
+    plain_sketch = KernelOperator.sketch
+
+    def sketch(self, omega):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain_sketch(self, omega)
+        end.record()
+        seen.update(x=self.x, omega=omega, out=out, events=(start, end))
+        return out
+
+    return plain_sketch, sketch
+
+
+def _svd_times(z) -> dict:
+    """One run each (CUDA events) of the thin SVD the port takes,
+    ``torch.linalg.svd(z)``, and of the SVD of R from ``z = QR`` on a tall
+    z, and the largest relative difference of their singular values."""
+    import torch
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        s = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), s
+
+    svd_ms, s_plain = timed(lambda: torch.linalg.svd(z, full_matrices=False)[1])
+    qr_ms, s_qr = timed(lambda: torch.linalg.svd(torch.linalg.qr(z)[1], full_matrices=False)[1])
+    return {"svd_shape": list(z.shape), "svd_ms": svd_ms, "qr_svd_ms": qr_ms,
+            "s_max_rel_diff": float(((s_plain - s_qr).abs() / s_plain.clamp_min(1e-30)).max())}
+
+
+def _held(name: str, got, want) -> dict:
+    """One check of a kernel at a baseline's path shape against its plain
+    version (``_err`` tolerances)."""
+    import torch
+
+    torch.cuda.synchronize()
+    err, ok = _err(got, want, "f32")
+    return {"check": name, "shape": list(want.shape), "max_abs_err": err, "ok": ok}
+
+
+def _baseline_checks(method: str, problem, seen: dict) -> list[dict]:
+    """Hold each kernel launch shape of ``method``'s path against the plain
+    version, on the path's own operands where the path exposes them."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kernel_block import kernel_block_cuda
+    from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda
+
+    x = problem.x
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    mv = lambda a, b, v: kernel_matvec_cuda(a, b, v, kernel="rbf", sigma=SIGMA,  # noqa: E731
+                                            precision="f32")
+    if method == "pcg-nystrom":  # SKETCH_ROWS rows of the sketch's own output
+        rows = torch.randperm(N_TRAIN, generator=gen, device="cuda")[:SKETCH_ROWS]
+        got = seen["out"].index_select(0, rows)
+        return [_held("sketch rows", got, ref.kernel_matvec(
+            seen["x"].index_select(0, rows), seen["x"], seen["omega"], SIGMA))]
+    if method == "pcg-rpcholesky":  # one pivot column, in full
+        xp = x[int(torch.randint(N_TRAIN, (1,), generator=gen, device="cuda"))][None]
+        return [_held("pivot column", kernel_block_cuda(x, xp, kernel="rbf", sigma=SIGMA,
+                                                        precision="f32"),
+                      ref.kernel_block(x, xp, SIGMA))]
+    if method == "falkon":  # the solve's centers: K(X, X_m) v and K(X_m, X) u
+        centers = torch.randperm(N_TRAIN, generator=torch.Generator(device="cuda").manual_seed(0),
+                                 device="cuda")[:FALKON_M]
+        xm = x.index_select(0, centers)
+        v = torch.randn((FALKON_M,), generator=gen, device="cuda")
+        u = torch.randn((N_TRAIN,), generator=gen, device="cuda")
+        return [_held("K(X, X_m) v", mv(x, xm, v), ref.kernel_matvec(x, xm, v, SIGMA)),
+                _held("K(X_m, X) u", mv(xm, x, u), ref.kernel_matvec(xm, x, u, SIGMA))]
+    if method == "eigenpro":  # a batch gradient, and K_SB g
+        # a unit-scale W: EigenPro's own iterate may diverge, and then K W
+        # cancels terms far larger than itself, which f32 sums in another
+        # order cannot match to a tolerance scaled by |K W|
+        idx = torch.randperm(N_TRAIN, generator=gen, device="cuda")
+        xb = x.index_select(0, idx[:EIGENPRO_BATCH])
+        xs = x.index_select(0, idx[EIGENPRO_BATCH:EIGENPRO_BATCH + EIGENPRO_SUB])
+        w = torch.randn((N_TRAIN, 1), generator=gen, device="cuda")
+        g = torch.randn((EIGENPRO_BATCH, 1), generator=gen, device="cuda")
+        return [_held("batch gradient K(x_B, X) W", mv(xb, x, w), ref.kernel_matvec(xb, x, w, SIGMA)),
+                _held("K_SB g", mv(xs, xb, g), ref.kernel_matvec(xs, xb, g, SIGMA))]
+    if method == "direct":  # K of the rows, in full
+        return [_held("K", kernel_block_cuda(x, x, kernel="rbf", sigma=SIGMA, precision="f32"),
+                      ref.kernel_block(x, x, SIGMA))]
+    return []
+
+
+def phase_baselines() -> list[dict]:
+    """The paper's baselines through ``solver_api.solve`` on phase 4's taxi
+    data (d = 9, rbf, sigma 1, lam_unscaled 2e-7, f32; n = 10^6, direct on
+    the first 20,000 rows), one line a method: iterations, seconds, the
+    final relative residual (Falkon -1, as the reference launcher), test
+    RMSE, the path's launches (zeroed before, read after) and the checks of
+    its kernel shapes against their plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.krr import KRRProblem, evaluate
+    from repro_torch.core.operator import KernelOperator
+    from repro_torch.core.solver_api import solve
+    from repro_torch.kernels import ops
+
+    x, y = taxi_data()
+    x_te, y_te = x[N_TRAIN:], y[N_TRAIN:]
+    recs = []
+    for method, kw, path_kernels, cut in BASELINES:
+        n = N_DIRECT if method == "direct" else N_TRAIN
+        problem = KRRProblem(x=x[:n], y=y[:n], kernel="rbf", sigma=SIGMA,
+                             lam_unscaled=LAM_UNSCALED, precision="f32")
+        seen: dict = {}
+        plain_sketch, probe = _sketch_probe(seen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        KernelOperator.sketch = probe
+        try:
+            t0 = time.perf_counter()
+            out = solve(problem, method, **kw)
+            pred = out.predict_fn(x_te)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            KernelOperator.sketch = plain_sketch
+        launches = ops.launches()
+        rel, energy = -1.0, None
+        if method != "falkon":  # one residual pass: the residual and CG's objective
+            kw_w = problem.op.k_lam_matvec(out.w, problem.lam)
+            rel = float(torch.linalg.vector_norm(kw_w - problem.y)
+                        / torch.linalg.vector_norm(problem.y))
+            energy = float(0.5 * (out.w.double() @ kw_w.double())
+                           - problem.y.double() @ out.w.double())
+            del kw_w
+        rmse = float(evaluate(pred, y_te).rmse)
+        rec = {"phase": "baselines", "method": method, "n": n, "n_test": N_TEST, **kw,
+               "iters": out.info.get("iters"), "seconds": seconds,
+               "solve_s": out.info.get("wall_time_s"), "rel_residual": rel,
+               "rel_residual_start": 1.0, "energy": energy, "energy_start": 0.0,
+               "history_rel_residual": [h["rel_residual"] for h in out.history],
+               "test_rmse": rmse, "launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        times = [h["time_s"] for h in out.history]
+        if len(times) > 1:  # CG-type: host clock between iterations (each syncs)
+            rec["iter_ms"] = 1e3 * float(np.median(np.diff(times)))
+            rec["setup_s"] = times[0] - rec["iter_ms"] / 1e3
+        if "events" in seen:
+            rec["sketch_ms"] = seen["events"][0].elapsed_time(seen["events"][1])
+            rec["sketch_shape"] = [n, n, D, int(seen["omega"].shape[1])]
+        rec["checks"] = _baseline_checks(method, problem, seen)
+        if method == "pcg-rff":  # the factor's thin SVD, two ways, on its features
+            from repro_torch.core.rff import DEFAULT_OVERSAMPLE, rff_features
+
+            rec.update(_svd_times(rff_features(
+                torch.Generator(device="cuda").manual_seed(0), problem.x,
+                DEFAULT_OVERSAMPLE["rbf"] * kw["rank"], SIGMA)))
+        rec["reduced"] = "n 1e8 -> 1e6 (+1e4 test): O(n^2 d) residual, one-card time limit" + cut
+        emit(rec)
+        _on_card(method, w=out.w, pred=pred)
+        _path_launches(launches, path_kernels, method)
+        for c in rec["checks"]:
+            if not c["ok"]:
+                fail(f"{method}: {c['check']} disagrees with its plain version: "
+                     f"err {c['max_abs_err']}")
+        if method == "direct" and not (math.isfinite(rel) and rel < 1.0):
+            fail(f"direct: final rel_residual {rel} is not finite and below its start of 1.0")
+        # CG's residual norm is not monotone (on this data it climbs above its
+        # start within 10 iterations, in the JAX package too); its objective
+        # 1/2 w'(K + lam I)w - y'w is, and starts at 0 for w = 0
+        if method in PCG_FAMILY and not (math.isfinite(rel) and energy < 0.0):
+            fail(f"{method}: residual {rel} not finite or objective {energy} not below "
+                 "its start of 0")
+        if method != "eigenpro" and not (math.isfinite(rmse) and pred.shape == (N_TEST,)):
+            fail(f"{method}: prediction not finite / wrong shape: rmse {rmse}, "
+                 f"shape {tuple(pred.shape)}")
+        recs.append(rec)
+        del out, pred, seen
+        torch.cuda.empty_cache()
+    return recs
+
+
 def _time_ms(fn, reps: int = 5) -> float:
     import torch
 
@@ -909,11 +1143,14 @@ def _time_case(fn, plain_fn, bound: dict) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "ok": ok}
 
 
-def phase_time(launches: dict, weights: tuple[float, ...], tune_wc) -> list[dict]:
+def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: list[dict]
+               ) -> list[dict]:
     """Time every kernel at its main-path shapes.  ``launches`` holds each
     path's counts (``"solve"``, ``"tune"``, ``"refit"``: each path's reset
-    and read), ``weights`` the refit's combination and ``tune_wc`` the
-    tune's (q, C) per-column weights.  One row per (kernel, path shape)."""
+    and read), ``weights`` the refit's combination, ``tune_wc`` the
+    tune's (q, C) per-column weights and ``baselines`` phase
+    ``baselines``' records (their launches and the sketch's time).  One row
+    per (kernel, path shape)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1015,6 +1252,46 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc) -> list[dict
                       lambda: ref.kernel_matvec_multi(xq, x, z, sg, w_t, kernels=ks),
                       _bound_multi(N_TEST, N_TRAIN, D, 1, ks, "matvec"))},
     ]
+    # the baselines' new shapes: pcg-nystrom's sketch at t = 100 (timed at
+    # G_B's 50,000 rows, beside the sketch's one 10^6-row launch from the
+    # phase), an RPCholesky pivot column and Falkon's two sweeps
+    by_method = {r["method"]: r for r in baselines}
+    nys = by_method["pcg-nystrom"]
+    gen_b = torch.Generator(device="cuda").manual_seed(13)
+    omega_b, _ = torch.linalg.qr(torch.randn((N_TRAIN, RANK), generator=gen_b, device="cuda"))
+    xm = x.index_select(0, torch.randperm(N_TRAIN, generator=gen_b, device="cuda")[:FALKON_M])
+    vm = torch.randn((FALKON_M,), generator=gen_b, device="cuda")
+    xp = xb[:1].contiguous()
+    ident = ("name", "route", "source", "replaces", "library_ms")
+    mv_row, blk_row = ({k: r[k] for k in ident} for r in rows[:2])
+    mv = lambda a, b, v: kernel_matvec_cuda(a, b, v, kernel="rbf", sigma=SIGMA,  # noqa: E731
+                                            precision="f32")
+    sketch_bound = _bound(N_TRAIN, N_TRAIN, D, RANK)
+    rows += [
+        {**mv_row, "case": "pcg-nystrom sketch (t = 100)",
+         "launches": nys["launches"]["kernel_matvec"], "shape": [BLOCK, N_TRAIN, D, RANK],
+         **_time_case(lambda: mv(xb, x, omega_b),
+                      lambda: ref.kernel_matvec(xb, x, omega_b, SIGMA),
+                      _bound(BLOCK, N_TRAIN, D, RANK)),
+         "sketch_ms": nys["sketch_ms"], "sketch_shape": nys["sketch_shape"],
+         "sketch_bound_ms": sketch_bound["bound_ms"], "sketch_bound_by": sketch_bound["bound_by"]},
+        {**blk_row, "case": "rpcholesky pivot column",
+         "launches": by_method["pcg-rpcholesky"]["launches"]["kernel_block"],
+         "shape": [N_TRAIN, 1, D],
+         **_time_case(lambda: kernel_block_cuda(x, xp, kernel="rbf", sigma=SIGMA,
+                                                precision="f32"),
+                      lambda: ref.kernel_block(x, xp, SIGMA), _bound(N_TRAIN, 1, D, None))},
+        {**mv_row, "case": "falkon K(X, X_m) v",
+         "launches": by_method["falkon"]["launches"]["kernel_matvec"],
+         "shape": [N_TRAIN, FALKON_M, D, 1],
+         **_time_case(lambda: mv(x, xm, vm), lambda: ref.kernel_matvec(x, xm, vm, SIGMA),
+                      _bound(N_TRAIN, FALKON_M, D, 1))},
+        {**mv_row, "case": "falkon K(X_m, X) u",
+         "launches": by_method["falkon"]["launches"]["kernel_matvec"],
+         "shape": [FALKON_M, N_TRAIN, D, 1],
+         **_time_case(lambda: mv(xm, x, z), lambda: ref.kernel_matvec(xm, x, z, SIGMA),
+                      _bound(FALKON_M, N_TRAIN, D, 1))},
+    ]
     for r in [*rows, *extra]:
         emit({"phase": "time", **r})
         if not r["ok"]:
@@ -1077,11 +1354,12 @@ def main() -> int:
     solve_rec = phase_solve()
     tune_rec, tune_result = phase_tune()
     refit_rec = phase_refit(tune_result.best)
+    baseline_recs = phase_baselines()
     # each path's launch counts, from its own reset and read
     launches = {"solve": solve_rec["launches"], "tune": tune_rec["launches"],
                 "refit": refit_rec["launches"]}
     rows = phase_time(launches, tuple(tune_result.best["weights"]),
-                      _tune_weight_cols(tune_result))
+                      _tune_weight_cols(tune_result), baseline_recs)
     phase_launch()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{k: r[k] for k in (

@@ -1,13 +1,14 @@
 """Unified solver entry points — the port of ``repro.core.solver_api``'s
 ``solve`` and ``tune``.
 
-``solve(problem, method, **kw)`` keeps the reference's contract for the
-methods ported so far, ``"askotch"`` and ``"skotch"``: multi-RHS problems,
-per-head convergence in the history records, unknown options failing fast
-with the accepted list, and the universal ``kernel=`` (a name or a tuple of
-names: a weighted-sum multi-kernel solve) / ``weights=`` / ``precision=``
-overrides with the bf16 tolerance warning.  Every other method of
-:data:`METHODS` raises ``NotImplementedError`` ("not yet ported").
+``solve(problem, method, **kw)`` keeps the reference's contract for every
+single-device method (:data:`PORTED_METHODS`: ASkotch / Skotch, the PCG
+family, Falkon, EigenPro and direct): multi-RHS problems, per-head
+convergence in the history records, unknown options failing fast with the
+accepted list, and the universal ``kernel=`` (a name or a tuple of names: a
+weighted-sum multi-kernel solve) / ``weights=`` / ``precision=`` overrides
+with the bf16 tolerance warning.  ``method="dc"`` and ``mesh=`` raise
+``NotImplementedError`` until the distributed slice.
 ``tune(problem, **kw)`` routes to the single-kernel or the multi-kernel
 search with the reference's option lists.  The ``backend`` option is gone:
 the problem's tensors decide the device.
@@ -21,7 +22,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core import askotch
+from repro_torch.core import askotch, direct, eigenpro, falkon, pcg
 from repro_torch.core.krr import KRRProblem
 from repro_torch.kernels.precision import check_precision
 
@@ -38,8 +39,8 @@ METHODS = (
     "dc",
 )
 
-#: the methods this package implements so far
-PORTED_METHODS = ("askotch", "skotch")
+#: the methods this package implements: all but the distributed tier
+PORTED_METHODS = tuple(m for m in METHODS if m != "dc")
 
 #: tolerances below this are unreachable with bf16 kernel tiles; solve()
 #: warns, it does not silently stall
@@ -52,11 +53,29 @@ _ASKOTCH_CFG_KEYS = (
 _ASKOTCH_SOLVE_KEYS = (
     "max_iters", "tol", "eval_every", "seed", "time_budget_s", "callback", "w0",
 )
+_PCG_KEYS = (
+    "rank", "rho_mode", "max_iters", "tol", "seed", "time_budget_s", "w0",
+)
+_FALKON_KEYS = ("m", "max_iters", "tol", "seed", "jitter", "time_budget_s")
+_EIGENPRO_KEYS = (
+    "rank", "subsample", "batch_size", "lr_scale", "epochs", "seed",
+    "eval_every", "time_budget_s",
+)
+
+#: the PCG-family methods and their preconditioner kinds
+_PCG_PRECOND = {
+    "pcg-nystrom": "nystrom", "pcg-rpcholesky": "rpcholesky", "pcg-rff": "rff",
+    "cg": "identity",
+}
 
 #: accepted keyword options per ported method
 METHOD_OPTIONS: dict[str, tuple[str, ...]] = {
     "askotch": _ASKOTCH_CFG_KEYS + _ASKOTCH_SOLVE_KEYS,
     "skotch": _ASKOTCH_CFG_KEYS + _ASKOTCH_SOLVE_KEYS,
+    **{m: _PCG_KEYS for m in _PCG_PRECOND},
+    "falkon": _FALKON_KEYS,
+    "eigenpro": _EIGENPRO_KEYS,
+    "direct": (),
 }
 
 #: accepted keyword options of tune() (the reference's list): ``policy``
@@ -107,24 +126,31 @@ def _head_info(problem: KRRProblem, history: list[dict]) -> dict[str, Any]:
     return info
 
 
-def solve(problem: KRRProblem, method: str = "askotch", **kw) -> SolveOutput:
-    """Solve (K + lam I) W = Y.
+def solve(problem: KRRProblem, method: str = "askotch", *, mesh=None, **kw) -> SolveOutput:
+    """Solve (K + lam I) W = Y with any single-device method the paper
+    benchmarks.
 
     Args:
       problem: the :class:`~repro_torch.core.krr.KRRProblem`; ``problem.y``
         may be (n,) or (n, t) one-vs-all heads.
-      method: one of :data:`METHODS`; only :data:`PORTED_METHODS` run.
+      method: one of :data:`METHODS`; :data:`PORTED_METHODS` run, ``"dc"``
+        raises ``NotImplementedError``.
+      mesh: must be None until the distributed slice.
       **kw: exactly :data:`METHOD_OPTIONS[method]`, plus the universal
         ``kernel=``, ``weights=`` and ``precision=`` overrides and
         ``telemetry=`` (must be None until the telemetry slice).
 
     Returns:
-      A :class:`SolveOutput`: ``w`` ((n,) or (n, t)), the ``history``
-      records, an ``info`` dict and a ``predict_fn`` mapping (q, d) queries
-      to (q[, t]) scores.
+      A :class:`SolveOutput`: ``w`` ((n,), (n, t), or (m[, t]) for Falkon's
+      inducing-point weights), the ``history`` records, an ``info`` dict and
+      a ``predict_fn`` mapping (q, d) queries to (q[, t]) scores.
     """
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; available: {METHODS}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not yet ported to repro_torch (distributed slice)"
+        )
     telemetry = kw.pop("telemetry", None)
     if "kernel" in kw or "weights" in kw or "precision" in kw:
         problem = dataclasses.replace(
@@ -141,12 +167,49 @@ def solve(problem: KRRProblem, method: str = "askotch", **kw) -> SolveOutput:
         )
     if method not in PORTED_METHODS:
         raise NotImplementedError(
-            f"method {method!r} is not yet ported to repro_torch; ported: {PORTED_METHODS}"
+            f"method {method!r} is not yet ported to repro_torch (distributed "
+            f"slice); ported: {PORTED_METHODS}"
         )
     _validate_options(method, kw)
-    cfg_kw = {k: kw.pop(k) for k in _ASKOTCH_CFG_KEYS if k in kw}
-    cfg = askotch.ASkotchConfig(accelerated=(method == "askotch"), **cfg_kw)
-    res = askotch.solve(problem, cfg, telemetry=telemetry, **kw)
+    if method in ("askotch", "skotch"):
+        cfg_kw = {k: kw.pop(k) for k in _ASKOTCH_CFG_KEYS if k in kw}
+        cfg = askotch.ASkotchConfig(accelerated=(method == "askotch"), **cfg_kw)
+        res = askotch.solve(problem, cfg, telemetry=telemetry, **kw)
+    elif method in _PCG_PRECOND:
+        res = pcg.solve_pcg(problem, precond=_PCG_PRECOND[method], telemetry=telemetry, **kw)
+    elif method == "falkon":
+        res = falkon.solve_falkon(problem, telemetry=telemetry, **kw)
+        return SolveOutput(
+            method=method,
+            w=res.w,
+            history=res.history,
+            info={"iters": res.iters, "wall_time_s": res.wall_time_s,
+                  "m": res.w.shape[0], **_head_info(problem, res.history)},
+            predict_fn=lambda xt: falkon.falkon_predict(problem, res, xt),
+        )
+    elif method == "eigenpro":
+        res = eigenpro.solve_eigenpro(problem, telemetry=telemetry, **kw)
+        return SolveOutput(
+            method=method,
+            w=res.w,
+            history=res.history,
+            info={"iters": res.iters, "wall_time_s": res.wall_time_s,
+                  **_head_info(problem, res.history)},
+            predict_fn=lambda xt: problem.predict(res.w, xt),
+        )
+    else:  # direct
+        if telemetry is not None:
+            raise NotImplementedError(
+                "telemetry= is not yet ported to repro_torch (telemetry slice)"
+            )
+        w = direct.solve_direct(problem)
+        return SolveOutput(
+            method=method,
+            w=w,
+            history=[],
+            info=_head_info(problem, []),
+            predict_fn=lambda xt: problem.predict(w, xt),
+        )
     return SolveOutput(
         method=method,
         w=res.w,

@@ -1,5 +1,6 @@
-"""KRR solve launcher — the port of ``repro.launch.krr_solve`` for the
-askotch / skotch methods.
+"""KRR solve launcher — the port of ``repro.launch.krr_solve`` for every
+single-device method (askotch, skotch, pcg-nystrom, pcg-rpcholesky,
+pcg-rff, cg, falkon, eigenpro, direct).
 
     PYTHONPATH=src python -m repro_torch.launch.krr_solve --n 20000 --d 9 \\
         --method askotch --iters 300 [--device cpu]
@@ -10,7 +11,11 @@ askotch / skotch methods.
 
 ``--device`` (default ``cuda``) picks where the data and every kernel sweep
 live; ``cuda`` without a card is an error.  The JSON line has the same keys
-as the JAX launcher's.  TF32 is off for every f32 matmul.
+as the JAX launcher's: ``--iters`` is ``max_iters`` (EigenPro runs
+``max(1, iters // 100)`` epochs, direct takes no option), Falkon uses
+``m = min(1000, max(50, n // 20), n)`` centers and reports
+``rel_residual = -1.0`` (its inducing-point weights have no full-K
+residual).  TF32 is off for every f32 matmul.
 """
 
 from __future__ import annotations
@@ -72,15 +77,28 @@ def main(argv: list[str] | None = None) -> dict:
                       lam_unscaled=args.lam, precision=args.precision)
 
     t0 = time.perf_counter()
-    out = solve_any(prob, args.method, max_iters=args.iters)
+    if args.method == "direct":
+        kw = {}
+    elif args.method == "eigenpro":
+        kw = {"epochs": max(1, args.iters // 100)}  # SGD epochs, not iters
+    else:
+        kw = {"max_iters": args.iters}
+    if args.method == "falkon":
+        # default center count, clamped so tiny-n runs stay sampleable
+        kw["m"] = min(1000, max(50, args.n // 20), args.n)
+    out = solve_any(prob, args.method, **kw)
     info = {"method": args.method, **out.info}
-    rel_agg, rel_heads = prob.residual_report(out.w)
+    if args.method == "falkon":  # inducing-point weights: full-K residual undefined
+        rel, rel_heads = -1.0, None
+    else:
+        rel_agg, rel_heads = prob.residual_report(out.w)
+        rel = float(rel_agg)
     pred = out.predict_fn(x_te)
     m = evaluate(pred, y_te)
     report = {
         **info,
         "n": args.n,
-        "rel_residual": float(rel_agg),
+        "rel_residual": rel,
         "test_rmse": float(m.rmse),
         "test_mae": float(m.mae),
         "test_acc": float(m.accuracy),
@@ -88,7 +106,8 @@ def main(argv: list[str] | None = None) -> dict:
     }
     if prob.t > 1:
         mh = evaluate_per_head(pred, y_te)
-        report["rel_residual_per_head"] = rel_heads.tolist()
+        if rel_heads is not None:
+            report["rel_residual_per_head"] = rel_heads.tolist()
         report["test_acc_per_head"] = mh.accuracy.tolist()
     print(json.dumps(report))
     return report

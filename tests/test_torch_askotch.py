@@ -371,7 +371,7 @@ def test_solver_api_fail_fast():
     with pytest.raises(ValueError, match=r"unknown option\(s\) \['bogus'\].*accepted"):
         solve(p, "askotch", bogus=1)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        solve(p, "pcg-nystrom")
+        solve(p, "dc")
     out = solve(p, "askotch", kernel=("rbf", "laplacian"), max_iters=1)  # multi-kernel runs
     assert out.w.shape == (64,)
     with pytest.raises(ValueError, match="unknown kernel"):
@@ -427,7 +427,9 @@ def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys, repro_torch, repro_torch.convert, repro_torch.launch.krr_solve, "
         "repro_torch.core.solver_api, repro_torch.core.skotch, repro_torch.launch.krr_tune, "
-        "repro_torch.core.tuning, repro_torch.core.multikernel, repro_torch.kernels.multi\n"
+        "repro_torch.core.tuning, repro_torch.core.multikernel, repro_torch.kernels.multi, "
+        "repro_torch.core.pcg, repro_torch.core.rff, repro_torch.core.rpcholesky, "
+        "repro_torch.core.direct, repro_torch.core.falkon, repro_torch.core.eigenpro\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

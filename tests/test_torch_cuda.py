@@ -381,3 +381,92 @@ def test_cuda_block_and_stacked_matvec_are_deterministic(cuda_device, rng):
                lambda: kernel_matvec_components_cuda(x, x, v, kernels=kernels, sigmas=sigmas,
                                                      precision="f32")):
         assert torch.equal(fn(), fn())
+
+
+# ---------------------------------------------------------------------------
+# the baseline solvers' shapes and solves
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(300, 1), (1, 300), (1000, 1), (1, 1)])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_block_single_row_or_column(cuda_device, rng, m, n, precision):
+    """kernel_block at (m, 1) (an RPCholesky pivot column) and (1, n): one
+    live column or row of a tile, no float4 store."""
+    a = _t(rng.standard_normal((m, 9)).astype(np.float32) / 3).to(cuda_device)
+    b = _t(rng.standard_normal((n, 9)).astype(np.float32) / 3).to(cuda_device)
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    for kern in ("rbf", "laplacian", "cosine"):
+        got = kernel_block_cuda(a, b, kernel=kern, sigma=1.2, precision=precision)
+        torch.cuda.synchronize()
+        want = ops.ref.kernel_block(a, b, 1.2, kernel=kern, precision=precision).cpu().numpy()
+        assert got.shape == (m, n)
+        np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(130, 301), (1000, 3001), (65, 64)])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_matvec_t100_matches_plain(cuda_device, rng, m, n, precision):
+    """kernel_matvec at t = 100 (pcg-nystrom's sketch width: 13 column
+    chunks of the t > 1 loop, the last ragged) with ragged m and n."""
+    a = _t(rng.standard_normal((m, 9)).astype(np.float32) / 3).to(cuda_device)
+    b = _t(rng.standard_normal((n, 9)).astype(np.float32) / 3).to(cuda_device)
+    v = _t(rng.standard_normal((n, 100)).astype(np.float32)).to(cuda_device)
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    for kern in ("rbf", "matern52"):
+        got = kernel_matvec_cuda(a, b, v, kernel=kern, sigma=1.2, precision=precision)
+        torch.cuda.synchronize()
+        want = ops.ref.kernel_matvec(a, b, v, 1.2, kernel=kern, precision=precision).cpu().numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+
+
+def _baseline_solve(method, prob, draws, dev):
+    """``method`` on ``prob`` with the injected draws moved to ``dev``."""
+    from repro_torch.core import direct, eigenpro, falkon, pcg
+
+    d = {k: ([p.to(dev) for p in v] if isinstance(v, list) else v.to(dev))
+         for k, v in draws.items()}
+    if method == "direct":
+        return direct.solve_direct(prob)
+    if method == "falkon":
+        return falkon.solve_falkon(prob, 200, max_iters=10, **d).w
+    if method == "eigenpro":
+        return eigenpro.solve_eigenpro(prob, rank=40, subsample=300, batch_size=100, epochs=1,
+                                       **d).w
+    precond = {"pcg-nystrom": "nystrom", "pcg-rpcholesky": "rpcholesky", "pcg-rff": "rff",
+               "cg": "identity"}[method]
+    return pcg.solve_pcg(prob, precond=precond, rank=40, max_iters=10, **d).w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["pcg-nystrom", "pcg-rpcholesky", "pcg-rff", "cg",
+                                    "falkon", "eigenpro", "direct"])
+def test_cuda_baseline_matches_cpu(cuda_device, rng, method):
+    """Each baseline at n = 2000 on the card (the CUDA kernels, cuBLAS /
+    cuSOLVER) against the same solve on the CPU (the plain versions,
+    LAPACK), with the same injected draws: w within 1e-3 relative after 10
+    CG iterations (one EigenPro epoch; direct exactly).  sigma 0.7 keeps the
+    f32 CG trajectories stable against summation order."""
+    n, d, r = 2000, 6, 40
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = (np.sin(x[:, 0]) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    draws = {
+        "pcg-nystrom": {"omega": rng.standard_normal((n, r))},
+        "pcg-rpcholesky": {"pivots": rng.choice(n, r, replace=False)},
+        "pcg-rff": {"freqs": rng.standard_normal((4 * r, d)) / 0.7,
+                    "phases": rng.uniform(0, 2 * np.pi, 4 * r)},
+        "falkon": {"centers_idx": rng.choice(n, 200, replace=False)},
+        "eigenpro": {"sub_idx": rng.choice(n, 300, replace=False),
+                     "perms": [rng.permutation(n)]},
+    }.get(method, {})
+    draws = {k: ([_t(p) for p in v] if isinstance(v, list)
+                 else _t(v.astype(np.float32) if v.dtype == np.float64 else v))
+             for k, v in draws.items()}
+    out = {}
+    for dev in ("cpu", cuda_device):
+        prob = KRRProblem(x=_t(x).to(dev), y=_t(y).to(dev), sigma=0.7, lam_unscaled=1e-4)
+        out[str(dev)] = _baseline_solve(method, prob, draws, dev).cpu().numpy()
+    want = out["cpu"]
+    assert np.linalg.norm(out["cuda"] - want) / np.linalg.norm(want) < 1e-3
