@@ -16,9 +16,14 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                t = 8} x d in {9, 37} at m = 1000, n = 3001, then
                kernel_matvec at t = 1 on the edges of its t = 1 sweep
                (T1_EDGES: d = 1, 16, 17; n below one staged B tile and one
-               past a multiple of it).  Tolerances as the JAX package's
-               kernel tests: f32 rtol 2e-4 / atol 2e-5 x max(1, |ref|max);
-               bf16 rtol 0.05 / atol 0.02 x max(1, |ref|max).  182 checks.
+               past a multiple of it), then kernel_matvec at t > 1 on the
+               edges of its two routes (the 8-column loop up to t = 8, the
+               column path above): every kernel x {f32, bf16} x d in {9,
+               37} at m = 1001, n = 2999 and t in COLS_T (each column
+               width, t % 4 != 0, several column blocks).  Tolerances as the
+               JAX package's kernel tests: f32 rtol 2e-4 / atol 2e-5 x
+               max(1, |ref|max); bf16 rtol 0.05 / atol 0.02 x max(1,
+               |ref|max).  546 checks.
   3b. check_multi — the three multi-kernel kernels against their plain
                versions, same tolerances and shapes: the combinations
                (rbf, laplacian, matern52) (l2 + l1 families), (linear,
@@ -40,8 +45,9 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                path) and a copy of it.  440 checks.
   3c. determinism — two launches of each t = 1 kernel (kernel_matvec, the
                weighted matvec) at the solve's G_B shape, of the weighted
-               block at the refit's K_BB and of the stacked matvec at the
-               tune's sketch are bitwise equal.
+               block at the refit's K_BB, of the stacked matvec at the
+               tune's sketch and of kernel_matvec's column path at t = 100
+               (20,000^2 x 100) are bitwise equal.
   4. solve   — the main path through ``solver_api.solve("askotch")`` at the
                paper's taxi configuration (d = 9, rbf, sigma = 1,
                lam_unscaled = 2e-7, b = 50,000, r = 100, f32), with n cut
@@ -97,7 +103,8 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                (``sfu_floor_ms``) beside the bound.  The baselines' shapes:
                kernel_matvec at t = 100 (50,000 x 10^6, beside the sketch's
                one 10^6-row launch from phase 6b), kernel_block at (10^6, 1)
-               and Falkon's two sweeps.  The kernels line has
+               and Falkon's two sweeps; and kernel_matvec at a one-vs-all
+               G_B of 10 heads (50,000 x 10^6 x 10).  The kernels line has
                one row per (kernel, path shape), each with the launches of
                that path.
   8. launch  — ``python -m repro_torch.launch.krr_solve --method askotch
@@ -146,6 +153,7 @@ N_TRAIN, N_TEST, D = 1_000_000, 10_000, 9
 BLOCK, RANK, SIGMA, LAM_UNSCALED = 50_000, 100, 1.0, 2e-7
 MAX_ITERS = 20
 SMALL_M = 64  # a few prediction queries: fewer row tiles than SMs
+OVA_HEADS = 10  # a one-vs-all G_B's heads (t), timed at the solve's G_B shape
 
 # the multi-kernel tune (benchmarks/bench_multikernel.py:22-23 kernels and
 # M / L / K), n cut; its C = M * L * K columns ride one stacked CG
@@ -364,16 +372,40 @@ def phase_check() -> dict:
                 if not ok or got.shape != want.shape:
                     fail(f"kernel_matvec {kern} {prec} d={d} n={n_e} t=1: err {err}")
                 worst["kernel_matvec"] = max(worst["kernel_matvec"], err)
+    # the edges of the t > 1 routes: m, n ragged against the column path's
+    # 32-row and 16-row tiles and the loop's 64-row ones
+    m_c, n_c = 1001, 2999
+    gen_cols = torch.Generator().manual_seed(14)
+    n_checks = 0
+    for d in (9, 37):
+        a = (torch.randn((m_c, d), generator=gen_cols) / math.sqrt(d)).cuda()
+        b = (torch.randn((n_c, d), generator=gen_cols) / math.sqrt(d)).cuda()
+        a[3] = 0.0
+        for t in COLS_T:
+            v = torch.randn((n_c, t), generator=gen_cols).cuda()
+            for kern in KERNEL_NAMES:
+                for prec in ("f32", "bf16"):
+                    want = ref.kernel_matvec(a, b, v, sigma, kernel=kern, precision=prec)
+                    got = kernel_matvec_cuda(a, b, v, kernel=kern, sigma=sigma, precision=prec)
+                    torch.cuda.synchronize()
+                    err, ok = _err(got, want, prec)
+                    emit({"check": "kernel_matvec", "kernel": kern, "precision": prec,
+                          "d": d, "m": m_c, "n": n_c, "t": t, "max_abs_err": err, "ok": ok})
+                    if not ok or got.shape != want.shape:
+                        fail(f"kernel_matvec {kern} {prec} d={d} m={m_c} n={n_c} t={t}: err {err}")
+                    worst["kernel_matvec"] = max(worst["kernel_matvec"], err)
+                    n_checks += 1
     emit({"phase": "check", "m": m, "n": n, "sigma": sigma, "t1_edges": T1_EDGES,
-          "worst_abs_err": worst})
+          "cols_t": COLS_T, "cols_checks": n_checks, "worst_abs_err": worst})
     return worst
 
 
 def phase_check_determinism() -> None:
     """Two launches of each redesigned kernel at its main-path shape give
     bitwise equal results: the t = 1 kernels at the solve's G_B (50,000 x
-    10^6, d = 9), the weighted block at the refit's K_BB (50,000^2) and the
-    stacked matvec at the tune's sketch (20,000^2 x 100)."""
+    10^6, d = 9), the weighted block at the refit's K_BB (50,000^2), the
+    stacked matvec at the tune's sketch (20,000^2 x 100) and kernel_matvec
+    on its column path at a rank-100 sketch (20,000^2 x 100)."""
     import torch
 
     from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda
@@ -398,6 +430,8 @@ def phase_check_determinism() -> None:
             xb, xb, kernels=MK_KERNELS, sigmas=sg, weights=w, precision="f32")),
         "kernel_matvec_components": ([N_TUNE, N_TUNE, D, RANK], lambda: kernel_matvec_components_cuda(
             xt, xt, omega, kernels=MK_KERNELS, sigmas=sg, precision="f32")),
+        "kernel_matvec (t = 100)": ([N_TUNE, N_TUNE, D, RANK], lambda: kernel_matvec_cuda(
+            xt, xt, omega, kernel="rbf", sigma=SIGMA, precision="f32")),
     }
     for name, (shape, fn) in runs.items():
         first = fn()
@@ -432,6 +466,14 @@ MULTI_CASES = [
 #: rows a tile, d = 9) and the slab loop (64 rows a tile, d = 37)
 T1_EDGES = [(1, 3001), (16, 3001), (17, 3001), (9, 100), (9, 257), (37, 50), (37, 65)]
 
+
+#: kernel_matvec's widths t > 1 in phase check: its 8-column loop (2, 3 and
+#: 8), then its column path: the narrow blocks (9 and 10 in a 32-column
+#: block; 33 and 64 in a 64-column one), the sketch's rank 100 (one
+#: 128-column block, cw 100), the edges of the 128- and 160-column blocks
+#: (128; 129 in one 160-column block; 160) and several blocks (161: two of
+#: 84 columns; 321: three of 108); V is padded to a multiple of 4 columns
+COLS_T = (2, 3, 8, 9, 10, 33, 64, 100, 128, 129, 160, 161, 321)
 
 #: the widths at which check_multi also holds the weighted matvec's column
 #: path: the tune's 160 columns (one 160-column block), 161 (two 128-column
@@ -1252,6 +1294,19 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
                       lambda: ref.kernel_matvec_multi(xq, x, z, sg, w_t, kernels=ks),
                       _bound_multi(N_TEST, N_TRAIN, D, 1, ks, "matvec"))},
     ]
+    # kernel_matvec at a one-vs-all G_B of OVA_HEADS heads, on the column
+    # path's narrow width
+    z_ova = torch.randn((N_TRAIN, OVA_HEADS), generator=torch.Generator(device="cuda").manual_seed(15),
+                        device="cuda")
+    extra += [
+        {"name": "kernel_matvec", "case": f"one-vs-all G_B (t = {OVA_HEADS})",
+         "shape": [BLOCK, N_TRAIN, D, OVA_HEADS],
+         **_time_case(lambda: kernel_matvec_cuda(xb, x, z_ova, kernel="rbf", sigma=SIGMA,
+                                                 precision="f32"),
+                      lambda: ref.kernel_matvec(xb, x, z_ova, SIGMA, kernel="rbf"),
+                      _bound(BLOCK, N_TRAIN, D, OVA_HEADS))},
+    ]
+    del z_ova
     # the baselines' new shapes: pcg-nystrom's sketch at t = 100 (timed at
     # G_B's 50,000 rows, beside the sketch's one 10^6-row launch from the
     # phase), an RPCholesky pivot column and Falkon's two sweeps

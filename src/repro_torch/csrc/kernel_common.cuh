@@ -34,7 +34,9 @@ __host__ __device__ constexpr int family_of(int kid) {
 
 __host__ __device__ constexpr bool needs_norms(int fam) { return fam == F_L2 || fam == F_COS; }
 
-// Tiling shared by both kernels: a block of 256 threads owns TM rows of A
+// Tiling shared by kernel_block.cu and kernel_matvec.cu's loop for t <= 8
+// (DC is also the column path's slab width, sweep_cols.cuh): a block of 256
+// threads owns TM rows of A
 // and walks B in tiles of TN rows.  Thread (rg, lane) = (tid / LANES,
 // tid % LANES) computes the RM consecutive rows rg*RM .. rg*RM+3 against
 // the JN consecutive columns lane*JN .. lane*JN+3 of a tile.  The feature

@@ -22,42 +22,65 @@
 // rs ||b||^2 - 2 rs acc and exp(x) = ex2(x log2 e) costs nothing more), the
 // ex2 (one special-function operation a pair) and one FMA with v.
 //
-// t > 1 runs on the first port's loop (kernel_matvec_kernel below):
-//   * one block per 64-row tile of A and TC = 8 columns of V (grid.y), A
-//     staged once; the block loops over all of B and V in 64-row tiles, d
-//     walked in 32-wide slabs;
-//   * the next slab of B (and V) is loaded into registers while the current
-//     one is computed, then written to shared memory, feature-major, so
-//     each thread reads its 4 rows and 4 columns of a feature as two float4
-//     per 16 fused multiply-adds;
-//   * each thread owns a 4 x 4 register tile of the distance and, for its 4
-//     rows, TC output accumulators in registers;
-//   * slab and tile counters are carried, not divided, and the map's
-//     divisions are per-launch constants;
-//   * the 16 threads sharing a row reduce their partial sums with a fixed
-//     butterfly of warp shuffles at the end.
-// Both are deterministic: no atomics.
+// t > 8 (pcg-nystrom's and the single-kernel tune's sketches K Omega, the
+// tune's CG apply over its lam x fold columns, a one-vs-all G_B, residual
+// pass and prediction with t heads, Falkon's and EigenPro's multi-head
+// sweeps) runs on the column path of sweep_cols.cuh, shared with the
+// weighted and stacked matvecs, with one kernel fixed at compile time
+// (kernel_matvec_cols_kernel): no table, no weight rows, one 16 x 32 kernel
+// tile a B tile.  Each pair's kernel value is formed once per 16-row B tile
+// for all of the block's columns (up to 160; a wider t is split evenly over
+// column blocks), then every thread streams its 8 rows x CO columns of the
+// output through it: per B row two float4 of K, the V row and 8 CO FMAs,
+// the loop unrolled over 16 / CO B rows (two at CO >= 8).  The width
+// follows t: CO is 2, 4, 8 or 10 (16 CO columns a block), the smallest that
+// holds the block's columns.  For rbf the scale is folded into the norms as
+// on the t = 1 sweep: a pair's map is one add, one FMA, one min and the
+// ex2.  Bound: the t FMAs a pair at the FP32 rate (100 at the sketch's
+// rank 100), above the ~2d + 6 operations of the distance and the map.
+//
+// 2 <= t <= 8 runs on the first port's loop (kernel_matvec_kernel), one
+// chunk of TC = 8 columns: a block per 64-row tile of A walks all of B and
+// V in 64-row tiles, d in 32-wide slabs loaded into registers a slab ahead
+// and staged feature-major, each thread a 4 x 4 register tile of the
+// distance and 4 rows x 8 output sums, the 16 threads of a row reduced by a
+// fixed butterfly of shuffles.  Below 9 columns the column path's work per
+// 16-row B tile that does not scale with the columns (the copies of B and
+// V, three barriers, the d loop and the maps for a 32-row block) costs more
+// than the 8-column loop: at the solve's G_B shape (50,000 x 10^6, rbf) the
+// loop takes ~135 ms up to t = 8 and ~270 ms from 9 to 16, the column path
+// ~235 ms at t = 8 and 16 (PERF.md).
+// The wrapper pads V with zero columns to a multiple of 4 at t > 1, so its
+// rows are copied in 16-byte units.
 // Known limit: a small m (a few prediction queries) gives fewer blocks than
 // the 132 SMs; splitting n across blocks is later work.
 //
 // Precision: with bf16 operands the kernel value is rounded to bf16 before
 // its product with V (the TPU kernel's bf16 matmul operand); the product of
-// two bf16 values is exact in f32 and accumulates in f32.
+// two bf16 values is exact in f32 and accumulates in f32.  At t > 1 the
+// wrapper passes the bf16-rounded operands widened to f32 (exact).
+//
+// Deterministic: no atomics; the t = 1 sweep adds its warps' row sums in
+// warp order, the loop reduces a row's 16 partial sums by a fixed
+// butterfly, and on the column path a thread owns whole output values.
 #include "kernel_common.cuh"
+#include "sweep_cols.cuh"
 #include "sweep_t1.cuh"
 
 using namespace pk;
 
-// t > 1: a block takes TC columns of V (grid.y chunks).
+// 2 <= t <= TC: the first port's loop, a block per 64-row tile of A for all
+// of V's columns (A, B and V f32; BF16: holding bf16-rounded values, and
+// each K value is rounded to bf16 before its product with V).
 constexpr int TC = 8;
 
-template <typename T, int KID>
+template <bool BF16, int KID>
 __global__ void __launch_bounds__(THREADS, 1)
-kernel_matvec_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ v,
-                     float* __restrict__ out, int64_t m, int64_t n, int d, int t, float sigma) {
+kernel_matvec_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                     const float* __restrict__ v, float* __restrict__ out, int64_t m, int64_t n,
+                     int d, int t, float sigma) {
   constexpr int FAM = family_of(KID);
   constexpr bool NORMS = needs_norms(FAM);
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int PV = (TN * TC + THREADS - 1) / THREADS;
   __shared__ __align__(16) float As[DC][TM];
   __shared__ __align__(16) float Bs[DC][TN];
@@ -82,7 +105,7 @@ kernel_matvec_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* 
   auto fetch_next = [&]() {
     const int k0 = f_slab * DC;
     fetch_b(pb, b, f_j0, n, d, k0, min(DC, d - k0));
-    if (f_slab == 0) fetch_v<T, TC, PV>(pv, v, f_j0, n, t, c0, tc);
+    if (f_slab == 0) fetch_v<float, TC, PV>(pv, v, f_j0, n, t, c0, tc);
     if (++f_slab == ns) {
       f_slab = 0;
       f_j0 += TN;
@@ -215,10 +238,81 @@ static cudaError_t launch_t1(const T* a, const T* b, const T* v, float* out, int
   return err;
 }
 
+// The kernel set of kernel_matvec's column path: kernel KID alone,
+// unweighted, its map constants in registers, the FMA loop unrolled over
+// JU_ B rows.  rbf keeps its norms scaled by rs = -log2(e) / (2 sigma^2) <
+// 0, so its value is ex2(min(rs a2 + rs b2 - 2 rs a.b, 0)); the dot family
+// keeps no norms.
+template <int KID, int JU_>
+struct OneKernel {
+  using Tab = cols::NoTable;
+  static constexpr bool WEIGHTED = false;
+  static constexpr bool NORMS = needs_norms(family_of(KID));
+  static constexpr int JU = JU_;
+  MapConst mc;
+  __device__ __forceinline__ static constexpr int q() { return 1; }
+  __device__ __forceinline__ void load(Tab&) const {}
+  __device__ __forceinline__ float weight(const Tab&, int, int, int, int) const { return 0.0f; }
+  __device__ __forceinline__ float norm(float s) const {
+    return KID == K_RBF ? mc.rbf_scale * s : s;
+  }
+  __device__ __forceinline__ void map(const Tab&, int, float (&kv)[4][1],
+                                      const float (&ac)[4][1], const float (&ac1)[4][1],
+                                      const float (&av)[4], const float (&bv)[1]) const {
+    constexpr int FAM = family_of(KID);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      kv[i][0] = KID == K_RBF
+                     ? ex2(fminf(fmaf(ac[i][0], -2.0f * mc.rbf_scale, av[i] + bv[0]), 0.0f))
+                     : kernel_map<KID>(
+                           base_value<FAM>(FAM == F_L1 ? ac1[i][0] : ac[i][0], av[i], bv[0]), mc);
+  }
+};
+
+// out (m, t) = K(A, B) @ V, t > 1, on the column path: grid.y block y owns
+// columns [y cw, min((y + 1) cw, t)), cw <= 16 CO.  A, B and V are f32 (for
+// BF16, holding bf16-rounded values; each K value is rounded to bf16 before
+// its product with V).
+template <bool BF16, int KID, int CO>
+__global__ void __launch_bounds__(cols::CTHREADS, 6)
+kernel_matvec_cols_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                          const float* __restrict__ v, float* __restrict__ out, int64_t m,
+                          int64_t n, int d, int t, int cw, float sigma, bool v16) {
+  constexpr int FAM = family_of(KID);
+  // the FMA loop's 8 CO FMAs a B row, unrolled to 32 or more a step
+  constexpr int JU = CO <= 4 ? 16 / CO : 2;
+  cols::body<BF16, FAM != F_L1, FAM == F_L1, CO>(a, b, v, out, m, n, d, t, cw,
+                                                 OneKernel<KID, JU>{map_const(sigma)}, v16, false);
+}
+
+template <bool BF16, int KID>
+static cudaError_t launch_cols(const float* a, const float* b, const float* v, float* out,
+                               int64_t m, int64_t n, int d, int t, float sigma, cudaStream_t s) {
+  const cols::Split sp = cols::col_split(t, true);
+  if (sp.gy > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((m + cols::CM - 1) / cols::CM), (unsigned)sp.gy);
+  const bool v16 = t % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  // one kernel tile: under the 48 KB a block gets by default
+#define PK_COLS(CO)                                                                        \
+  kernel_matvec_cols_kernel<BF16, KID, CO>                                                 \
+      <<<grid, cols::CTHREADS, cols::smem_bytes<cols::CCG * CO, cols::NoTable>(1), s>>>(   \
+          a, b, v, out, m, n, d, t, sp.cw, sigma, v16)
+  switch (sp.co) {
+    case cols::CO_TWO: PK_COLS(cols::CO_TWO); break;
+    case cols::CO_FOUR: PK_COLS(cols::CO_FOUR); break;
+    case cols::CO_MID: PK_COLS(cols::CO_MID); break;
+    default: PK_COLS(cols::CO_WIDE); break;
+  }
+#undef PK_COLS
+  return cudaGetLastError();
+}
+
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// bf16 != 0 reads A, B and V as __nv_bfloat16, else as float.  d, t >= 1.
-// t == 1 needs `scratch`: sweep_t1_scratch_floats(n, d) floats of device
-// memory (unused for t > 1).
+// d, t >= 1.  t == 1: bf16 != 0 reads A, B and V as __nv_bfloat16, else as
+// float, and needs `scratch`: sweep_t1_scratch_floats(n, d) floats of
+// device memory.  t > 1: A, B and V are float (bf16 != 0: holding
+// bf16-rounded values, and K is rounded to bf16 before its product with V);
+// `scratch` is unused.
 extern "C" int kernel_matvec_launch(const void* a, const void* b, const void* v, void* out,
                                     long long m, long long n, int d, int t, float sigma,
                                     int kernel_id, int bf16, void* scratch, void* stream) {
@@ -238,17 +332,28 @@ extern "C" int kernel_matvec_launch(const void* a, const void* b, const void* v,
 #undef PK_LAUNCH
     return (int)err;
   }
-  const int gy = (t + TC - 1) / TC;
-  if (gy > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((m + TM - 1) / TM), (unsigned)gy);
-#define PK_LAUNCH(T, KID)                                                                   \
-  kernel_matvec_kernel<T, KID><<<grid, THREADS, 0, s>>>(                                    \
-      (const T*)a, (const T*)b, (const T*)v, (float*)out, m, n, d, t, sigma)
+  if (t <= TC) {  // one 8-column chunk: faster than a column block up to 8 columns
+    const dim3 grid((unsigned)((m + TM - 1) / TM));
+#define PK_LAUNCH(BF, KID)                                                                  \
+  kernel_matvec_kernel<BF, KID><<<grid, THREADS, 0, s>>>(                                   \
+      (const float*)a, (const float*)b, (const float*)v, (float*)out, m, n, d, t, sigma)
+    if (bf16) {
+      PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, true)
+    } else {
+      PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, false)
+    }
+#undef PK_LAUNCH
+    return (int)cudaGetLastError();
+  }
+  cudaError_t err = cudaSuccess;
+#define PK_LAUNCH(BF, KID)                                                                  \
+  err = launch_cols<BF, KID>((const float*)a, (const float*)b, (const float*)v, (float*)out, \
+                             m, n, d, t, sigma, s)
   if (bf16) {
-    PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, __nv_bfloat16)
+    PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, true)
   } else {
-    PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, float)
+    PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, false)
   }
 #undef PK_LAUNCH
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -40,18 +40,12 @@
 //
 // The column path (kernel_matvec_cols_kernel: the weighted matvec at t > 1,
 // the tune's matvec_cols, 160 columns; and the stacked matvec,
-// kernel_components_cols_kernel, the tune's sketch, 100 columns):
-//   * Kernel values once for all columns.  The TPU kernels take all of V's
-//     columns in one block, so they form each pair's distances and maps
-//     once.  A block here owns 32 rows of A and a column block of at most
-//     TCB = 160 columns (t is split evenly over the fewest such blocks; a
-//     block of at most 128 columns runs with TCB = 128), so each pair's
-//     distances and maps are formed once per 16-row B tile and written to
-//     shared memory; every thread then streams its 8 rows x 10 (8) columns
-//     of the output (80 (64) f32 registers, no lane reduction) through them.
-//     Per B row and kernel: two float4 of K_k, the shared V row and 80 FMAs
-//     (the weighted matvec first multiplies the V row by the column weights,
-//     held in registers three kernels at a time).
+// kernel_components_cols_kernel, the tune's sketch, 100 columns) runs on
+// sweep_cols.cuh, which it shares with kernel_matvec at t > 1: each pair's
+// kernel values formed once per 16-row B tile for a column block of up to
+// 160 columns, every thread streaming its 8 rows x 8 (10) columns of the
+// output through them.  Here the kernel sets are the MultiSpec's q kernels
+// with their weights (MultiSet<false>) and one kernel of it (MultiSet<true>):
 //   * The stacked matvec's (q, m, t) output has no weights to fold the q
 //     kernels into one accumulator, and a thread holds one 80-register
 //     output tile, so the grid spreads over the kernels: grid.z = q, and a
@@ -60,22 +54,10 @@
 //     family (at the sketch's rbf + laplacian + matern52 the dot product
 //     twice: 9 of ~340 operations a pair at t = 100); in exchange each block
 //     keeps the weighted path's 64 threads, registers and shared memory
-//     (cols_smem_bytes(1): 31 KB at 128 columns), so six blocks share an SM.
-//     The sketch's 625 x 3 blocks give each SM about the work the weighted
-//     matvec's 625 blocks of three kernels each do.
-//   * Shared memory (dynamic): the V tile (16 x TCB) and the transposed B
-//     slab, each double-buffered and copied by cp.async one tile ahead (no
-//     register holds data in flight); the A tile; each thread's pair
-//     accumulators; then q kernel tiles (16 x 32) and q weight rows.  At
-//     q = 3 and 160 columns that is 41.2 KB; above 48 KB (q > 5) the
-//     launcher opts in to more.  64 threads of at most 168 registers.
-//   * Bound: the q x t FMAs a pair (480 at q = 3, t = 160; 300 for the
-//     sketch) at the FP32 CUDA-core rate.  Tensor cores are not used: the
-//     f32 policy is true f32, which TF32 products would break.
-//   * The operands arrive as f32 (the wrappers widen bf16-rounded values),
-//     so rows of any d and t are copied in 4-byte units (V in 16-byte units
-//     when t % 4 == 0).
-//
+//     (31 KB at 128 columns), so six blocks share an SM.  The sketch's 625 x
+//     3 blocks give each SM about the work the weighted matvec's 625 blocks
+//     of three kernels each do.
+
 // The weighted block (kernel_block_multi_kernel: the refit's K_BB, 50,000^2):
 //   * Bound: the output.  10 GB of f32 at 3.35 TB/s is ~3.0 ms; beneath it
 //     the pair work (~45 instructions a pair for l1 + dot + three maps, ~3.4
@@ -122,6 +104,7 @@
 #include <algorithm>
 
 #include "kernel_common.cuh"
+#include "sweep_cols.cuh"
 #include "sweep_t1.cuh"
 
 using namespace pk;
@@ -279,302 +262,55 @@ kernel_matvec_multi_kernel(const T* __restrict__ a, const float* __restrict__ bp
 }
 
 // ---------------------------------------------------------------------------
-// The column path: the weighted matvec for t > 1 (the tune's matvec_cols)
-// and the stacked matvec (the tune's sketch).  A block of CTHREADS threads
-// owns CM rows of A and cw <= TCB = CCG * CO columns of V; it walks B in
-// tiles of CN rows.  Per tile, thread (rg, cg) = (tid / CCG, tid % CCG) forms
-// the family accumulators of rows rg*CRO .. +7 against B row cg and writes
-// their q kernel values to ks; then it multiplies its CRO x CO output tile
-// (rows rg*CRO .., columns cg*CO ..) by ks and by the V tile, scaled by its
-// columns' weights in registers (the stacked matvec: one kernel a block,
-// unweighted).
+// The column path (sweep_cols.cuh): the weighted matvec for t > 1 (the
+// tune's matvec_cols) and the stacked matvec (the tune's sketch).
 // ---------------------------------------------------------------------------
 
-constexpr int CTHREADS = 64;
-constexpr int CCG = 16;                      // column groups
-constexpr int CRO = 8;                       // output rows a thread owns
-constexpr int KG = 3;                        // kernels whose weights sit in registers at once
-constexpr int CM = (CTHREADS / CCG) * CRO;   // 32 rows of A per block
-constexpr int CN = CCG;                      // 16 rows of B per tile
-constexpr int TPR = CTHREADS / CN;           // threads that copy one B / V row
-constexpr int CO_MID = 8, CO_WIDE = 10;      // columns a thread owns: TCB 128 or 160
-
-// The column path's shared memory; the q kernel tiles ks[q][CN][CM] and the
-// q weight rows ws[q][TCB] of the column block follow it (dynamic).
-template <int TCB>
-struct alignas(16) ColsSmem {
-  float vraw[2][CN][TCB];  // V tiles, double-buffered by cp.async
-  float bs[2][DC][CN];     // B slabs, transposed, double-buffered by cp.async
-  float as[DC][CM];        // A: all of d when d <= DC, else the current slab
-  float pair[2][CRO][CTHREADS];  // each thread's dot and l1 accumulators of a tile
-  float a2[CM];
-  MultiTable tab;
+// The multi-kernel sets of the column path: the weighted matvec's q
+// kernels with their weights (w: (q, t) f32 rows in device memory, or null
+// for the static (q,) weights of the table), or, STACKED, entry blockIdx.z
+// of the table alone, unweighted.
+template <bool STACKED>
+struct MultiSet {
+  using Tab = MultiTable;
+  static constexpr bool WEIGHTED = !STACKED;
+  static constexpr bool NORMS = true;
+  static constexpr int JU = 1;
+  const MultiSpec& spec;
+  const float* w;
+  __device__ __forceinline__ int q() const { return STACKED ? 1 : spec.q; }
+  __device__ __forceinline__ void load(MultiTable& tab) const { load_table(tab, spec); }
+  __device__ __forceinline__ float weight(const MultiTable& tab, int k, int c0, int c,
+                                         int t) const {
+    return w ? w[(int64_t)k * t + c0 + c] : tab.w[k];
+  }
+  __device__ __forceinline__ float norm(float s) const { return s; }
+  __device__ __forceinline__ void map(const MultiTable& tab, int k, float (&kv)[4][1],
+                                      const float (&ac)[4][1], const float (&ac1)[4][1],
+                                      const float (&av)[4], const float (&bv)[1]) const {
+    const int kt = STACKED ? (int)blockIdx.z : 0;  // the table entry of kernel tile 0
+    tile_map(tab.kid[kt + k], kv, ac, ac1, av, bv, tab.mc[kt + k]);
+  }
 };
 
-template <int TCB>
-constexpr size_t cols_smem_bytes(int q) {
-  return sizeof(ColsSmem<TCB>) + sizeof(float) * q * (CN * CM + TCB);
-}
-
-// Copy 4 (16) bytes from device to shared memory asynchronously; with
-// `full` false nothing is read and the destination is zero-filled.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool full) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(full ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// Wait until at most one group of this thread's copies is in flight.
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// out (m, t) (+)= (sum_i w_i K_i(A, B)) @ V, t > 1: grid.y block y owns
-// columns [y cw, min((y + 1) cw, t)), cw <= TCB.  A, B and V are f32 (for
-// BF16, holding bf16-rounded values); w: (q, t) f32 rows in device memory,
-// or null for the static (q,) weights of `spec`.  v16: t % 4 == 0, cw % 4
-// == 0 and v 16-byte aligned (V copied in float4).  STACKED: out = K_z(A, B)
-// @ V for entry z of `spec` alone (no weights, no accumulate).
-template <bool BF16, bool DOTACC, bool L1ACC, int CO, bool STACKED>
-__device__ __forceinline__ void cols_body(const float* __restrict__ a, const float* __restrict__ b,
-                                          const float* __restrict__ v, const float* __restrict__ w,
-                                          float* __restrict__ out, int64_t m, int64_t n, int d,
-                                          int t, int cw, const MultiSpec& spec, bool v16,
-                                          bool accumulate, int z) {
-  constexpr int TCB = CCG * CO;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  ColsSmem<TCB>& S = *reinterpret_cast<ColsSmem<TCB>*>(smem_raw);
-  const int q = STACKED ? 1 : spec.q;
-  const int kt = STACKED ? z : 0;  // the table entry of kernel tile 0
-  float (*ks)[CN][CM] = reinterpret_cast<float (*)[CN][CM]>(smem_raw + sizeof(ColsSmem<TCB>));
-  float (*ws)[TCB] = reinterpret_cast<float (*)[TCB]>(&ks[q][0][0]);
-  const int tid = threadIdx.x, rg = tid / CCG, cg = tid % CCG;
-  const int64_t r0 = (int64_t)blockIdx.x * CM;
-  const int c0 = blockIdx.y * cw;
-  const int tc = min(cw, t - c0);
-  const int ns = (d + DC - 1) / DC;  // slabs per B tile
-  const bool a_once = ns == 1;
-
-  auto stage_as = [&](int k0, int kc) {
-    for (int idx = tid; idx < CM * kc; idx += CTHREADS) {
-      const int r = idx % CM, k = idx / CM;
-      const int64_t g = r0 + r;
-      S.as[k][r] = g < m ? a[g * d + k0 + k] : 0.0f;
-    }
-  };
-  load_table(S.tab, spec);
-  if (DOTACC)
-    for (int r = tid; r < CM; r += CTHREADS) {
-      float s = 0.0f;
-      const int64_t g = r0 + r;
-      if (g < m)
-        for (int k = 0; k < d; ++k) s = fmaf(a[g * d + k], a[g * d + k], s);
-      S.a2[r] = s;
-    }
-  if (a_once) stage_as(0, d);
-  __syncthreads();  // tab
-  if (!STACKED)
-    for (int idx = tid; idx < q * TCB; idx += CTHREADS) {
-      const int k = idx / TCB, c = idx % TCB;
-      ws[k][c] = c < tc ? (w ? w[(int64_t)k * t + c0 + c] : S.tab.w[k]) : 0.0f;
-    }
-
-  // The copy pipeline.  A unit is one B slab, with the V tile on a tile's
-  // first slab; unit u + 1 is in flight while unit u is computed on.
-  int64_t f_j0 = 0;
-  int f_slab = 0, f_ub = 0, f_vb = 0;
-  auto issue_next = [&]() {
-    if (f_j0 < n) {
-      const int k0 = f_slab * DC, kc = min(DC, d - k0);
-      {  // B rows j0 + tid % CN, features k0 + tid / CN + TPR r
-        const int jj = tid % CN;
-        const int64_t g = f_j0 + jj;
-        const float* brow = b + (g < n ? g : 0) * d + k0;
-#pragma unroll
-        for (int r = 0; r < DC / TPR; ++r) {
-          const int k = tid / CN + TPR * r;
-          const bool ok = k < kc && g < n;
-          cp_async4(&S.bs[f_ub][k][jj], ok ? brow + k : b, ok);
-        }
-      }
-      if (f_slab == 0) {  // V row j0 + tid / TPR, TPR threads a row
-        const int jj = tid / TPR, lane = tid % TPR;
-        const int64_t g = f_j0 + jj;
-        const float* vrow = v + (g < n ? g : 0) * t + c0;
-        if (v16) {
-#pragma unroll
-          for (int u = 0; u < TCB / 4 / TPR; ++u) {
-            const int c = 4 * (lane + TPR * u);
-            const bool ok = g < n && c < tc;
-            cp_async16(&S.vraw[f_vb][jj][c], ok ? vrow + c : v, ok);
-          }
-        } else {
-#pragma unroll
-          for (int u = 0; u < TCB / TPR; ++u) {
-            const int c = lane + TPR * u;
-            const bool ok = g < n && c < tc;
-            cp_async4(&S.vraw[f_vb][jj][c], ok ? vrow + c : v, ok);
-          }
-        }
-      }
-      f_ub ^= 1;
-      if (++f_slab == ns) {
-        f_slab = 0;
-        f_j0 += CN;
-        f_vb ^= 1;
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the wait uniform
-  };
-  issue_next();
-
-  float o[CRO][CO] = {};
-  int ub = 0, vb = 0;
-  for (int64_t j0 = 0; j0 < n; j0 += CN, vb ^= 1) {
-    float acc[CRO] = {}, acc1[CRO] = {}, b2 = 0.0f;
-    for (int slab = 0; slab < ns; ++slab, ub ^= 1) {
-      const int k0 = slab * DC, kc = min(DC, d - k0);
-      // the buffer refilled next was read by the previous slab of this tile
-      // (the previous tile's last slab is covered by its trailing sync)
-      if (slab > 0) __syncthreads();
-      issue_next();
-      cp_async_wait1();
-      if (!a_once) stage_as(k0, kc);
-      __syncthreads();  // every thread's copies of this unit are visible
-#pragma unroll 4
-      for (int k = 0; k < kc; ++k) {
-        float ak[CRO];
-#pragma unroll
-        for (int i4 = 0; i4 < CRO / 4; ++i4) {
-          const float4 a4 = *reinterpret_cast<const float4*>(&S.as[k][rg * CRO + 4 * i4]);
-          ak[4 * i4] = a4.x; ak[4 * i4 + 1] = a4.y; ak[4 * i4 + 2] = a4.z; ak[4 * i4 + 3] = a4.w;
-        }
-        const float bk = S.bs[ub][k][cg];
-        if (DOTACC) b2 = fmaf(bk, bk, b2);  // the norm of B row cg, kept by each row group
-#pragma unroll
-        for (int i = 0; i < CRO; ++i) {
-          if (DOTACC) acc[i] = fmaf(ak[i], bk, acc[i]);
-          if (L1ACC) acc1[i] += fabsf(ak[i] - bk);
-        }
-      }
-    }
-
-    // the q kernel tiles, each pair's values formed once for all columns;
-    // the accumulators go through the thread's own slots of S.pair so the
-    // maps run on four pairs at a time beside the 80 output registers
-#pragma unroll
-    for (int i = 0; i < CRO; ++i) {
-      if (DOTACC) S.pair[0][i][tid] = acc[i];
-      if (L1ACC) S.pair[1][i][tid] = acc1[i];
-    }
-    const bool live = j0 + cg < n;  // B row cg of this tile lies before the ragged end
-#pragma unroll 1
-    for (int k = 0; k < q; ++k) {
-#pragma unroll 1
-      for (int h = 0; h < CRO; h += 4) {
-        float ac[4][1], ac1[4][1], av[4], bv[1] = {b2}, kv[4][1];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ac[i][0] = DOTACC ? S.pair[0][h + i][tid] : 0.0f;
-          ac1[i][0] = L1ACC ? S.pair[1][h + i][tid] : 0.0f;
-          av[i] = DOTACC ? S.a2[rg * CRO + h + i] : 0.0f;
-        }
-        tile_map(S.tab.kid[kt + k], kv, ac, ac1, av, bv, S.tab.mc[kt + k]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i][0] = live ? kv[i][0] : 0.0f;
-          if (BF16) kv[i][0] = round_bf16(kv[i][0]);
-        }
-        *reinterpret_cast<float4*>(&ks[k][cg][rg * CRO + h]) =
-            make_float4(kv[0][0], kv[1][0], kv[2][0], kv[3][0]);
-      }
-    }
-    __syncthreads();  // ks complete
-
-    // o += K_k (V * w_k), KG kernels at a time: per B row, CO / 2 float2 of
-    // V and, for each kernel, CRO / 4 float4 of K_k feed CRO x CO FMAs; the
-    // weights of the group's kernels stay in registers (STACKED: o += K_z V)
-#pragma unroll 1
-    for (int kb = 0; kb < q; kb += KG) {
-      float wk[KG][CO];
-      if (!STACKED)
-#pragma unroll
-        for (int g = 0; g < KG; ++g)
-#pragma unroll
-          for (int u = 0; u < CO / 2; ++u) {
-            const float2 x = kb + g < q ? *reinterpret_cast<const float2*>(&ws[kb + g][cg * CO + 2 * u])
-                                        : make_float2(0.0f, 0.0f);
-            wk[g][2 * u] = x.x;
-            wk[g][2 * u + 1] = x.y;
-          }
-      const float* vp = &S.vraw[vb][0][cg * CO];
-#pragma unroll 1
-      for (int j = 0; j < CN; ++j) {
-        float vv[CO];
-#pragma unroll
-        for (int u = 0; u < CO / 2; ++u) {
-          const float2 x = *reinterpret_cast<const float2*>(vp + j * TCB + 2 * u);
-          vv[2 * u] = x.x;
-          vv[2 * u + 1] = x.y;
-        }
-#pragma unroll
-        for (int g = 0; g < KG; ++g) {
-          if (kb + g >= q) break;
-          const float* kp = &ks[kb + g][j][rg * CRO];
-          float kk[CRO];
-#pragma unroll
-          for (int i4 = 0; i4 < CRO / 4; ++i4) {
-            const float4 k4 = *reinterpret_cast<const float4*>(kp + 4 * i4);
-            kk[4 * i4] = k4.x; kk[4 * i4 + 1] = k4.y; kk[4 * i4 + 2] = k4.z; kk[4 * i4 + 3] = k4.w;
-          }
-          float vw[CO];
-#pragma unroll
-          for (int c = 0; c < CO; ++c)
-            vw[c] = STACKED ? vv[c] : BF16 ? round_bf16(vv[c] * wk[g][c]) : vv[c] * wk[g][c];
-#pragma unroll
-          for (int i = 0; i < CRO; ++i)
-#pragma unroll
-            for (int c = 0; c < CO; ++c) o[i][c] = fmaf(kk[i], vw[c], o[i][c]);
-        }
-      }
-    }
-    __syncthreads();  // readers of ks, the V tile and the B slab are done
-  }
-
-#pragma unroll
-  for (int i = 0; i < CRO; ++i) {
-    const int64_t row = r0 + rg * CRO + i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int c = 0; c < CO; ++c) {
-      const int col = cg * CO + c;
-      if (col >= tc) continue;
-      float* dst = out + row * t + c0 + col;
-      *dst = !STACKED && accumulate ? *dst + o[i][c] : o[i][c];
-    }
-  }
-}
-
+// out (m, t) (+)= (sum_i w_i K_i(A, B)) @ V, t > 1, on the column path.
+// A, B and V are f32 (for BF16, holding bf16-rounded values); w: (q, t) f32
+// rows in device memory, or null for the static (q,) weights of `spec`.
 template <bool BF16, bool DOTACC, bool L1ACC, int CO>
-__global__ void __launch_bounds__(CTHREADS, 6)
+__global__ void __launch_bounds__(cols::CTHREADS, 6)
 kernel_matvec_cols_kernel(const float* __restrict__ a, const float* __restrict__ b,
                           const float* __restrict__ v, const float* __restrict__ w,
                           float* __restrict__ out, int64_t m, int64_t n, int d, int t,
                           int cw, MultiSpec spec, bool v16, bool accumulate) {
-  cols_body<BF16, DOTACC, L1ACC, CO, false>(a, b, v, w, out, m, n, d, t, cw, spec, v16,
-                                            accumulate, 0);
+  cols::body<BF16, DOTACC, L1ACC, CO>(a, b, v, out, m, n, d, t, cw, MultiSet<false>{spec, w},
+                                      v16, accumulate);
 }
 
 // out (q, m, t): out[z] = K_z(A, B) @ V for the q <= QC kernels of `spec`,
 // grid.z = q; a block forms only its kernel's family (the kernel's id picks
 // the body, uniformly across the block).
 template <bool BF16, int CO>
-__global__ void __launch_bounds__(CTHREADS, 6)
+__global__ void __launch_bounds__(cols::CTHREADS, 6)
 kernel_components_cols_kernel(const float* __restrict__ a, const float* __restrict__ b,
                               const float* __restrict__ v, float* __restrict__ out, int64_t m,
                               int64_t n, int d, int t, int cw, MultiSpec spec, bool v16) {
@@ -585,11 +321,11 @@ kernel_components_cols_kernel(const float* __restrict__ a, const float* __restri
     if (i == z) kid = spec.kid[i];
   float* oz = out + (int64_t)z * m * t;
   if (family_of(kid) == F_L1)
-    cols_body<BF16, false, true, CO, true>(a, b, v, nullptr, oz, m, n, d, t, cw, spec, v16,
-                                           false, z);
+    cols::body<BF16, false, true, CO>(a, b, v, oz, m, n, d, t, cw,
+                                      MultiSet<true>{spec, nullptr}, v16, false);
   else
-    cols_body<BF16, true, false, CO, true>(a, b, v, nullptr, oz, m, n, d, t, cw, spec, v16,
-                                           false, z);
+    cols::body<BF16, true, false, CO>(a, b, v, oz, m, n, d, t, cw,
+                                      MultiSet<true>{spec, nullptr}, v16, false);
 }
 
 // ---------------------------------------------------------------------------
@@ -945,12 +681,9 @@ extern "C" int kernel_matvec_multi_cols_launch(const float* a, const float* b, c
   if (!make_spec(spec, q, QMAX, kids, sigmas, weights, &dot, &l1) || (!w && !weights))
     return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
-  constexpr int TCB_WIDE = CCG * CO_WIDE;
-  const int gy = (t + TCB_WIDE - 1) / TCB_WIDE;
-  if (gy > 65535) return (int)cudaErrorInvalidValue;
-  const int cw = ((t + gy - 1) / gy + 3) / 4 * 4;  // columns a block owns
-  const bool mid = cw <= CCG * CO_MID;
-  const dim3 grid((unsigned)((m + CM - 1) / CM), (unsigned)gy);
+  const cols::Split sp = cols::col_split(t, false);
+  if (sp.gy > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((m + cols::CM - 1) / cols::CM), (unsigned)sp.gy);
   const bool v16 = t % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaSuccess;
@@ -958,19 +691,19 @@ extern "C" int kernel_matvec_multi_cols_launch(const float* a, const float* b, c
   // launch opts in first; a refusal is returned, and nothing is launched
 #define PK_LAUNCH_CO(BF, DA, LA, CO)                                                          \
   do {                                                                                        \
-    const size_t bytes = cols_smem_bytes<CCG * CO>(q);                                        \
+    const size_t bytes = cols::smem_bytes<cols::CCG * CO, MultiTable>(q);                     \
     if (bytes > 48 * 1024)                                                                    \
       err = cudaFuncSetAttribute(kernel_matvec_cols_kernel<BF, DA, LA, CO>,                   \
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);    \
     if (err == cudaSuccess)                                                                   \
-      kernel_matvec_cols_kernel<BF, DA, LA, CO><<<grid, CTHREADS, bytes, s>>>(                \
-          a, b, v, w, out, m, n, d, t, cw, spec, v16, accumulate != 0);                       \
+      kernel_matvec_cols_kernel<BF, DA, LA, CO><<<grid, cols::CTHREADS, bytes, s>>>(          \
+          a, b, v, w, out, m, n, d, t, sp.cw, spec, v16, accumulate != 0);                    \
   } while (0)
-#define PK_LAUNCH(BF, DA, LA)          \
-  if (mid)                             \
-    PK_LAUNCH_CO(BF, DA, LA, CO_MID);  \
-  else                                 \
-    PK_LAUNCH_CO(BF, DA, LA, CO_WIDE)
+#define PK_LAUNCH(BF, DA, LA)                \
+  if (sp.co == cols::CO_MID)                 \
+    PK_LAUNCH_CO(BF, DA, LA, cols::CO_MID);  \
+  else                                       \
+    PK_LAUNCH_CO(BF, DA, LA, cols::CO_WIDE)
   if (bf16) {
     PK_DISPATCH_FAMILIES(PK_LAUNCH, true);
   } else {
@@ -994,26 +727,23 @@ extern "C" int kernel_matvec_components_launch(const float* a, const float* b, c
   bool dot, l1;
   if (!make_spec(spec, q, QC, kids, sigmas, nullptr, &dot, &l1)) return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
-  constexpr int TCB_WIDE = CCG * CO_WIDE;
-  const int gy = (t + TCB_WIDE - 1) / TCB_WIDE;
-  if (gy > 65535) return (int)cudaErrorInvalidValue;
-  const int cw = ((t + gy - 1) / gy + 3) / 4 * 4;  // columns a block owns
-  const bool mid = cw <= CCG * CO_MID;
-  const dim3 grid((unsigned)((m + CM - 1) / CM), (unsigned)gy, (unsigned)q);
+  const cols::Split sp = cols::col_split(t, false);
+  if (sp.gy > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((m + cols::CM - 1) / cols::CM), (unsigned)sp.gy, (unsigned)q);
   const bool v16 = t % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  // one kernel's tile and no weight rows: under the 48 KB a block gets by default
-#define PK_LAUNCH_CO(BF, CO)                                                      \
-  do {                                                                            \
-    const size_t bytes = cols_smem_bytes<CCG * CO>(1);                            \
-    kernel_components_cols_kernel<BF, CO><<<grid, CTHREADS, bytes, s>>>(          \
-        a, b, v, out, m, n, d, t, cw, spec, v16);                                 \
+  // one kernel's tile: under the 48 KB a block gets by default
+#define PK_LAUNCH_CO(BF, CO)                                                           \
+  do {                                                                                 \
+    const size_t bytes = cols::smem_bytes<cols::CCG * CO, MultiTable>(1);              \
+    kernel_components_cols_kernel<BF, CO><<<grid, cols::CTHREADS, bytes, s>>>(         \
+        a, b, v, out, m, n, d, t, sp.cw, spec, v16);                                   \
   } while (0)
-#define PK_LAUNCH(BF)            \
-  if (mid)                       \
-    PK_LAUNCH_CO(BF, CO_MID);    \
-  else                           \
-    PK_LAUNCH_CO(BF, CO_WIDE)
+#define PK_LAUNCH(BF)                  \
+  if (sp.co == cols::CO_MID)           \
+    PK_LAUNCH_CO(BF, cols::CO_MID);    \
+  else                                 \
+    PK_LAUNCH_CO(BF, cols::CO_WIDE)
   if (bf16) {
     PK_LAUNCH(true);
   } else {

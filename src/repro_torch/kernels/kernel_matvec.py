@@ -2,9 +2,12 @@
 
 Replaces the TPU kernel ``src/repro/kernels/kernel_matvec.py:
 kernel_matvec_pallas``.  The kernel is bound by operations (O(m n d) f32
-FMAs plus one kernel-map evaluation per pair); its source note says how the
-design keeps every pair in registers and shared memory.  Its plain version
-is ``repro_torch.kernels.ref.kernel_matvec``.
+FMAs plus one kernel-map evaluation per pair, and t FMAs a pair for t
+columns); its source note says how the design keeps every pair in registers
+and shared memory.  The route is chosen by t alone: t = 1 runs on the t = 1
+sweep (``csrc/sweep_t1.cuh``), 2 <= t <= 8 on one 8-column loop, t > 8 on the
+column path (``csrc/sweep_cols.cuh``).  Its plain version is
+``repro_torch.kernels.ref.kernel_matvec``.
 
 The library is built from the sources and loaded at the first call, never
 at import, so this module imports on a machine without ``nvcc``.
@@ -69,7 +72,13 @@ def kernel_matvec_cuda(
 
     a: (m, d), b: (n, d), v: (n,) | (n, t), CUDA, f32 or bf16 -> f32 (m,) | (m, t).
     The operands are cast to the policy's type (bf16 for ``"bf16"``, f32
-    otherwise) and made contiguous before the launch.
+    otherwise) and made contiguous before the launch.  t = 1 launches the
+    t = 1 sweep (B packed with its norms and v into a scratch buffer
+    first).  t > 1 reads f32 operands (bf16 values widen exactly) with V
+    padded by zero columns to a multiple of 4, so its rows are copied in
+    16-byte units; up to 8 columns run on one 8-column loop, more on the
+    column path, which forms each pair's kernel value once for up to 160
+    columns.
     """
     check_operands(a, b, v)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1] or a.shape[1] < 1:
@@ -81,15 +90,20 @@ def kernel_matvec_cuda(
     m, d = a.shape
     n = b.shape[0]
     t = 1 if v.ndim == 1 else v.shape[1]
-    out = torch.empty((m,) if v.ndim == 1 else (m, t), dtype=torch.float32, device=a.device)
+    tp = -(-t // 4) * 4 if t > 1 else 1  # the columns launched
+    if t > 1:  # f32 operands: bf16 values widen exactly
+        a, b, v = (x.float() for x in (a, b, v))
+        if tp > t:
+            v = torch.nn.functional.pad(v, (0, tp - t))
+    out = torch.empty((m,) if v.ndim == 1 else (m, tp), dtype=torch.float32, device=a.device)
     if m == 0:  # nothing to launch
-        return out
+        return out[:, :t] if tp > t else out
     fn = _fn()
     # t = 1 packs B with its norms and v into a scratch buffer first
     scratch = t1_scratch(_build.load("kernel_matvec"), n, d, a.device) if t == 1 else None
     with torch.cuda.device(a.device):  # the launch goes to the runtime's current device
         err = fn(
-            a.data_ptr(), b.data_ptr(), v.data_ptr(), out.data_ptr(), m, n, d, t,
+            a.data_ptr(), b.data_ptr(), v.data_ptr(), out.data_ptr(), m, n, d, tp,
             float(sigma), KERNEL_NAMES.index(kernel), int(dt == torch.bfloat16),
             None if scratch is None or scratch.numel() == 0 else scratch.data_ptr(),
             torch.cuda.current_stream(a.device).cuda_stream,
@@ -97,7 +111,7 @@ def kernel_matvec_cuda(
     if err != 0:
         raise RuntimeError(f"kernel_matvec launch failed: CUDA error {err}")
     kernel_matvec_cuda.launches += 1
-    return out
+    return out[:, :t].contiguous() if tp > t else out
 
 
 #: launches since the last reset (``chip_smoke.py`` sets it to 0 before the

@@ -405,21 +405,50 @@ def test_cuda_block_single_row_or_column(cuda_device, rng, m, n, precision):
         np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
 
 
+#: kernel_matvec's widths t > 1: 2, 3 and 8 on its 8-column loop, then its
+#: column path: 9 and 10 in a 32-column block, 33 in a 64-column one,
+#: pcg-nystrom's rank 100 (one 128-column block), 129 (one 160-column block)
+#: and 161 (two blocks of 84 columns); a t that is not a multiple of 4 runs
+#: with V padded by zero columns
+COLS_T = [2, 3, 8, 9, 10, 33, 100, 129, 161]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n", [(130, 301), (1000, 3001), (65, 64)])
+@pytest.mark.parametrize("t", COLS_T)
+@pytest.mark.parametrize("kern", KERNEL_NAMES)
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-def test_cuda_matvec_t100_matches_plain(cuda_device, rng, m, n, precision):
-    """kernel_matvec at t = 100 (pcg-nystrom's sketch width: 13 column
-    chunks of the t > 1 loop, the last ragged) with ragged m and n."""
-    a = _t(rng.standard_normal((m, 9)).astype(np.float32) / 3).to(cuda_device)
-    b = _t(rng.standard_normal((n, 9)).astype(np.float32) / 3).to(cuda_device)
-    v = _t(rng.standard_normal((n, 100)).astype(np.float32)).to(cuda_device)
+def test_cuda_matvec_t100_matches_plain(cuda_device, rng, t, kern, precision):
+    """kernel_matvec at t > 1 (the 8-column loop up to t = 8, the column
+    path above: pcg-nystrom's sketch width 100 among them) against its plain
+    version, every kernel, at m and n ragged against the tiles ((130, 301),
+    (1000, 3001)) and at one column-path block's rows (65, 64); one launch a
+    call."""
     tol = F32_TOL if precision == "f32" else BF16_TOL
-    for kern in ("rbf", "matern52"):
+    for m, n in [(130, 301), (1000, 3001), (65, 64)]:
+        a = _t(rng.standard_normal((m, 9)).astype(np.float32) / 3).to(cuda_device)
+        b = _t(rng.standard_normal((n, 9)).astype(np.float32) / 3).to(cuda_device)
+        v = _t(rng.standard_normal((n, t)).astype(np.float32)).to(cuda_device)
+        before = kernel_matvec_cuda.launches
         got = kernel_matvec_cuda(a, b, v, kernel=kern, sigma=1.2, precision=precision)
         torch.cuda.synchronize()
+        assert kernel_matvec_cuda.launches == before + 1
+        assert got.shape == (m, t)
         want = ops.ref.kernel_matvec(a, b, v, 1.2, kernel=kern, precision=precision).cpu().numpy()
         np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [8, 10, 100])
+def test_cuda_matvec_columns_are_deterministic(cuda_device, rng, t):
+    """Two launches of kernel_matvec at t > 1 on the same inputs are
+    bitwise equal (no atomics: the loop's fixed butterfly at t = 8, the
+    column path's whole output values a thread at 10 and 100)."""
+    x = _t(rng.standard_normal((3000, 9)).astype(np.float32)).to(cuda_device)
+    v = _t(rng.standard_normal((3000, t)).astype(np.float32)).to(cuda_device)
+    for kern in ("rbf", "laplacian"):
+        fn = lambda: kernel_matvec_cuda(x, x, v, kernel=kern, sigma=1.0,  # noqa: E731
+                                        precision="f32")
+        assert torch.equal(fn(), fn())
 
 
 def _baseline_solve(method, prob, draws, dev):

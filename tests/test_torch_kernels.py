@@ -177,7 +177,7 @@ def test_build_needs_nvcc_and_sources_only(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     assert sorted(p.name for p in _build.CSRC.iterdir()) == [
         "kernel_block.cu", "kernel_common.cuh", "kernel_matvec.cu", "kernel_multi.cu",
-        "sweep_t1.cuh"]
+        "sweep_cols.cuh", "sweep_t1.cuh"]
     for name in ("kernel_matvec", "kernel_block", "kernel_multi"):
         assert _build.lib_path(name) == tmp_path / f"lib{name}.so"
         with pytest.raises(RuntimeError, match="nvcc not found"):

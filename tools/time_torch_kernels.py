@@ -27,7 +27,13 @@ bf16, laplacian, matern52, linear, cosine) and the weighted matvec with
 equal (q,) weights per combination (rbf, laplacian, matern52 alone,
 rbf + matern52, rbf + laplacian, all three in f32 and bf16): the
 differences between rows price a family's sum (laplacian's |a - b|
-against rbf's a.b) and a map (matern52 over rbf).  Timing is
+against rbf's a.b) and a map (matern52 over rbf).  ``kernel_matvec_cols``
+times ``kernel_matvec`` at t > 1 (its column path) on the solve's G_B
+operands (50,000 x 10^6) with t = 2, 10 (a one-vs-all G_B) and 100
+(pcg-nystrom's sketch width), each beside its bound (``chip_smoke._bound``);
+``--quick`` keeps these rows and ``--matvec-t`` sets the widths.  ``--digests`` adds the sha256 of the output
+of each multi-kernel call timed (and of ``kernel_matvec`` at G_B), so two
+trees' outputs are compared bitwise from their two lines.  Timing is
 ``chip_smoke._time_ms`` (CUDA events), median of 7 after one warm-up.
 Prints one JSON line.  Whichever ``repro_torch`` is first on ``PYTHONPATH``
 is timed, so two versions are compared by alternating runs within one
@@ -37,6 +43,7 @@ session (A, B, B, A).  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import sys
@@ -59,12 +66,28 @@ from repro_torch.kernels.multi import (  # noqa: E402
 #: chip_smoke.py, rounded
 REFIT_WEIGHTS = (0.665, 0.021, 0.314)
 
+#: kernel_matvec's widths at t > 1: two columns, a one-vs-all G_B of 10
+#: heads and pcg-nystrom's rank-100 sketch
+MATVEC_T = (2, 10, 100)
+
+
+def sha256_of(x: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes, copied to the host 4096 rows at a time."""
+    h = hashlib.sha256()
+    for i in range(0, x.shape[0], 4096):
+        h.update(x[i:i + 4096].contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="")
     ap.add_argument("--quick", action="store_true",
-                    help="only the column path, the stacked matvec and the weighted block")
+                    help="only the column paths, the stacked matvec and the weighted block")
+    ap.add_argument("--digests", action="store_true",
+                    help="add the sha256 of each multi-kernel call's output")
+    ap.add_argument("--matvec-t", default=",".join(map(str, MATVEC_T)),
+                    help="kernel_matvec's widths t > 1, comma-separated")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_torch_kernels: needs a CUDA card")
@@ -79,6 +102,19 @@ def main() -> None:
     w_refit = REFIT_WEIGHTS
     xq = xb[:chip_smoke.N_TEST].contiguous()
     report = {"label": args.label}
+    calls = {}  # label -> the call, for --digests
+    mv_cols = {}
+    gen_mv = torch.Generator(device="cuda").manual_seed(16)
+    for t in (int(x) for x in args.matvec_t.split(",")):
+        vt = torch.randn((x.shape[0], t), generator=gen_mv, device="cuda")
+        ms = median_ms(lambda: kernel_matvec_cuda(xb, x, vt, kernel="rbf", sigma=1.0,
+                                                  precision="f32"))
+        bound = chip_smoke._bound(xb.shape[0], x.shape[0], chip_smoke.D, t)
+        mv_cols[f"t{t}"] = {"t": t, "ms": ms, "bound_ms": bound["bound_ms"]}
+        del vt
+    report["kernel_matvec_cols"] = mv_cols
+    calls["kernel_matvec G_B"] = lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=1.0,
+                                                            precision="f32")
     if not args.quick:
         report["kernel_matvec_ms"] = median_ms(
             lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=1.0, precision="f32"))
@@ -90,8 +126,10 @@ def main() -> None:
             lambda: kernel_matvec_cuda(q, x, z, kernel="rbf", sigma=1.0, precision="f32"))
     t1 = {}
     for label, rows in (() if args.quick else (("refit_gb", xb), ("refit_predict", xq))):
-        ms = median_ms(lambda: kernel_matvec_multi_cuda(rows, x, z, w_refit, kernels=ks, sigmas=sg,
-                                                        precision="f32"))
+        calls[f"multi t1 {label}"] = fn = (
+            lambda rows=rows: kernel_matvec_multi_cuda(rows, x, z, w_refit, kernels=ks, sigmas=sg,
+                                                       precision="f32"))
+        ms = median_ms(fn)
         bound = chip_smoke._bound_multi(rows.shape[0], x.shape[0], chip_smoke.D, 1, ks, "matvec")
         t1[label] = {"m": rows.shape[0], "ms": ms, "bound_ms": bound["bound_ms"]}
     xt = x[:chip_smoke.N_TUNE]
@@ -105,19 +143,24 @@ def main() -> None:
                               .T.astype(np.float32)).cuda() if per_column
              else tuple(float(x) for x in np.random.default_rng(0).dirichlet(np.ones(len(ks)))))
         vc = torch.randn((chip_smoke.N_TUNE, t), generator=gen, device="cuda")
-        ms = median_ms(lambda: kernel_matvec_multi_cuda(xt, xt, vc, w, kernels=ks,
+        calls[f"multi cols {label}"] = fn = (
+            lambda vc=vc, w=w: kernel_matvec_multi_cuda(xt, xt, vc, w, kernels=ks,
                                                         sigmas=(1.0,) * len(ks), precision="f32"))
+        ms = median_ms(fn)
         bound = chip_smoke._bound_multi(chip_smoke.N_TUNE, chip_smoke.N_TUNE, chip_smoke.D, t, ks,
                                         "cols" if per_column else "matvec")
         cols[label] = {"t": t, "ms": ms, "bound_ms": bound["bound_ms"]}
     omega = torch.randn((chip_smoke.N_TUNE, chip_smoke.RANK), generator=gen, device="cuda")
-    comp_ms = median_ms(lambda: kernel_matvec_components_cuda(xt, xt, omega, kernels=ks, sigmas=sg,
-                                                              precision="f32"))
-    blk_multi_ms = median_ms(lambda: kernel_block_multi_cuda(xb, xb, kernels=ks, sigmas=sg,
-                                                             weights=w_refit, precision="f32"))
+    calls["components"] = lambda: kernel_matvec_components_cuda(xt, xt, omega, kernels=ks,
+                                                                sigmas=sg, precision="f32")
+    comp_ms = median_ms(calls["components"])
+    calls["block_multi"] = lambda: kernel_block_multi_cuda(xb, xb, kernels=ks, sigmas=sg,
+                                                           weights=w_refit, precision="f32")
+    blk_multi_ms = median_ms(calls["block_multi"])
     xb_copy = xb.clone()
-    blk_copy_ms = median_ms(lambda: kernel_block_multi_cuda(xb, xb_copy, kernels=ks, sigmas=sg,
-                                                            weights=w_refit, precision="f32"))
+    calls["block_multi copy"] = lambda: kernel_block_multi_cuda(xb, xb_copy, kernels=ks, sigmas=sg,
+                                                                weights=w_refit, precision="f32")
+    blk_copy_ms = median_ms(calls["block_multi copy"])
     blk_rbf_ms = median_ms(lambda: kernel_block_multi_cuda(xb, xb, kernels=("rbf",), sigmas=(1.0,),
                                                            weights=(1.0,), precision="f32"))
     parts = {}
@@ -140,6 +183,14 @@ def main() -> None:
                    "kernel_matvec_components_ms": comp_ms, "kernel_block_multi_ms": blk_multi_ms,
                    "kernel_block_multi_copy_ms": blk_copy_ms, "kernel_block_multi_rbf_ms": blk_rbf_ms,
                    "t1_parts_ms": parts, "card": chip_smoke.nvidia_smi_line()})
+    if args.digests:
+        digests = {}
+        for label, fn in calls.items():
+            out = fn()
+            digests[label] = sha256_of(out)
+            del out
+            torch.cuda.empty_cache()
+        report["digests"] = digests
     print(json.dumps(report))
 
 if __name__ == "__main__":
