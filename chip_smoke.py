@@ -56,7 +56,18 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                are zeroed before and read after.  kernel_matvec's other two
                shapes on the path, the prediction (10^4 x 10^6) and the
                residual pass (10^6 x 10^6), are held against the plain
-               version in full.
+               version in full.  Two warm-up steps run before it, so
+               its ``iter_ms`` is the steady state.
+  4b. telemetry — phase 4's solve with ``repro_torch.obs.Telemetry``:
+               disabled, enabled (JSONL), enabled (ring), disabled; the
+               JSONL validates, one trace event a history record, the
+               ``solve/askotch`` span covers the last record, the tile
+               counters equal ``record_tile_work``'s formula for 20 steps,
+               ``roofline_time_s`` a step beside the step time, and the
+               disabled step time within 2 % of phase 4's.  Then a
+               single-kernel tune (20,000 rows, sigma 1, 4 lams, 5 folds)
+               with telemetry: its ``repro_kernel_pairs_total`` delta equals
+               sweeps x n^2 and ``repro_cg_iterations_total`` is positive.
   5. tune    — the multi-kernel path's search: ``tune_multikernel`` on the
                first 20,000 rows of the same taxi data, kernels (rbf,
                laplacian, matern52) (benchmarks/bench_multikernel.py), 8
@@ -93,6 +104,24 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                objective not below its start of 0 (CG's residual norm is not
                monotone; its objective is), and a direct residual not below
                1.  EigenPro's residual and RMSE are recorded, not judged.
+  6c. estimators — ``repro_torch.estimators`` with the device default
+               (cuda) and without scikit-learn: ``KernelRidge`` (solver
+               askotch, phase 4's options and seed) fit on phase 4's rows,
+               its ``dual_coef_`` and test RMSE held against phase 4's
+               (bitwise, or within the f32 tolerance), fit / solve seconds,
+               predict ms and R²; ``KernelRidgeCV`` (alphas 20,000 x the
+               tune's lams, sigmas 0.5 / 1 / 2, 5 folds) on the tune rows,
+               its best equal to a direct ``tune()``'s; ``MultipleKernelRidgeCV``
+               on phase 5's search with its 8 weight rows passed in, its
+               best equal to phase 5's; a ``kernel="precomputed"`` direct
+               fit on a 2,000^2 Gram from ``kernel_block`` against the rbf
+               fit of the same rows.  Each path's launches are read.
+  6d. sap    — the exact SAP methods on the 20,000 tune rows (sigma 1,
+               lam_unscaled 1e-4): randomized Newton and NSAP at b = 2,000
+               (mu 0.01, nu n / b) for 60 steps, Kaczmarz and CD for 400,
+               each with its own draws until its residual is below its
+               start of 1; then 10 steps with injected indices on the card
+               against the CPU plain run, within the f32 tolerance.
   7. time    — each kernel at the main path's shapes (CUDA events, median
                of 5 after warm-up) beside its plain version and its bound,
                with the kernel's result held against the plain one there;
@@ -109,12 +138,14 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                that path.
   8. launch  — ``python -m repro_torch.launch.krr_solve --method askotch
                --iters 50`` and ``python -m repro_torch.launch.krr_tune
-               --kernels rbf,laplacian,matern52 --n 4000`` on cuda; their
-               JSON keys must be the JAX launchers'.
+               --kernels rbf,laplacian,matern52 --n 4000`` on cuda, both
+               with ``--telemetry`` (their JSONL files validate); their JSON
+               keys must be the JAX launchers'.
 
-Each of the paths in phases 4-6b sets every launch count to 0 just before
+Each of the paths in phases 4-6d sets every launch count to 0 just before
 it runs and reads the counts just after; a kernel of the path that was
-never launched fails the run.
+never launched fails the run.  Phases run in the order 1-3c, 4, 4b, 5, 6,
+6b, 6c, 6d, 7, 8.
 
 It imports nothing of JAX or of the JAX package.  Full build logs go to
 ``chiprun_out/chip_smoke_build.log``.
@@ -137,15 +168,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_S = 3.35e12
-# special-function results a second (ex2, sqrt): 16 a clock on each of the
-# 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper white paper), 1/8 of
-# the f32 rate; a floor beside the bound, which counts them as operations
-SFU_RESULTS_S = 132 * 16 * 1.98e9
-# special-function operations a pair of each kernel map on the t = 1 sweep
+# the H100's peaks (f32 outside the tensor cores, HBM3 bandwidth, the
+# special-function rate) come from one place, ``repro_torch.roofline.hw``,
+# read where the bounds are computed.  Special-function operations a pair
+# of each kernel map on the t = 1 sweep (a floor beside the bound, which
+# counts them as operations)
 SFU_OPS = {"rbf": 1, "laplacian": 1, "matern52": 2}
 
 # the paper's taxi configuration (src/repro/configs/askotch_krr.py), n cut
@@ -700,6 +727,9 @@ def phase_solve() -> dict:
     problem = KRRProblem(x=x[:N_TRAIN], y=y[:N_TRAIN], kernel="rbf", sigma=SIGMA,
                          lam_unscaled=LAM_UNSCALED, precision="f32")
     x_te, y_te = x[N_TRAIN:], y[N_TRAIN:]
+    # two warm-up steps first (cuBLAS / cuSOLVER handles, the first QR and
+    # eigh), so iter_ms is the steady state phase ``telemetry`` compares with
+    solve(problem, "askotch", block_size=BLOCK, rank=RANK, max_iters=2, eval_every=2)
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
@@ -756,7 +786,7 @@ def phase_solve() -> dict:
         fail(f"kernel_matvec's prediction disagrees with its plain version: err {pred_err}")
     if not kw_ok:
         fail(f"kernel_matvec's residual pass disagrees with its plain version: err {kw_err}")
-    return rec
+    return rec, out.w
 
 
 def _tune_weight_cols(result) -> "np.ndarray":
@@ -1110,6 +1140,295 @@ def phase_baselines() -> list[dict]:
     return recs
 
 
+# phase estimators: the CV searches of phase tune (single-kernel sigmas as
+# the krr_tune launcher's default), and the precomputed fit's rows and alpha
+CV_SIGMAS = (0.5, 1.0, 2.0)
+N_PRE, PRE_ALPHA = 2_000, LAM_UNSCALED * N_TRAIN
+# phase sap: the tune rows, b and NSAP's (mu, nu) of tests/test_core_solvers.py;
+# lam_unscaled 1e-4 keeps the exact block solves' f32 error (cond(K_BB + lam
+# I) times the f32 epsilon) below the check's tolerance: at the taxi 2e-7
+# the f32 iterate is 7e-4 off its f64 value after 10 steps
+SAP_B, SAP_LAM_UNSCALED, SAP_CHECK_STEPS = 2_000, 1e-4, 10
+
+
+def _step_ms(out, residual_s: float) -> float:
+    """ms a step of a solve whose one evaluation is its last step: the last
+    record's time less one residual pass, over the iterations."""
+    return 1e3 * (out.history[-1]["time_s"] - residual_s) / out.info["iters"]
+
+
+def _tile_work(b: int, n: int, d: int, steps: int) -> tuple[float, float]:
+    """``record_tile_work``'s f32 flops and bytes for ``steps`` ASkotch
+    steps: a (b, b) K_BB block and a (b, n) G_B matvec each."""
+    def one(rows: int, cols: int) -> tuple[float, float]:
+        return rows * cols * (2 * d + 8), (rows * d + cols * d + cols) * 4.0 + rows * 4.0
+
+    (f1, b1), (f2, b2) = one(b, b), one(b, n)
+    return steps * (f1 + f2), steps * (b1 + b2)
+
+
+def phase_telemetry(solve_rec: dict) -> dict:
+    """Phase solve's configuration with telemetry: disabled, enabled
+    (JSONL), enabled (ring), disabled; then one tune with telemetry."""
+    import torch
+
+    from repro_torch.core.krr import KRRProblem
+    from repro_torch.core.solver_api import solve, tune
+    from repro_torch.obs import Telemetry, diff, snapshot, validate_jsonl
+    from repro_torch.obs.metrics import roofline_time_s
+
+    x, y = taxi_data()
+    problem = KRRProblem(x=x[:N_TRAIN], y=y[:N_TRAIN], kernel="rbf", sigma=SIGMA,
+                         lam_unscaled=LAM_UNSCALED, precision="f32")
+    residual_s = solve_rec["residual_s"]
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "telemetry_solve.jsonl"
+    path.unlink(missing_ok=True)
+
+    def run(tel):
+        torch.cuda.synchronize()
+        return solve(problem, "askotch", block_size=BLOCK, rank=RANK, max_iters=MAX_ITERS,
+                     eval_every=MAX_ITERS, telemetry=tel)
+
+    off1 = _step_ms(run(None), residual_s)
+    tel = Telemetry(jsonl=str(path))
+    s0 = snapshot()
+    out = run(tel)
+    delta = diff(s0, snapshot())
+    tel.close()
+    on1 = _step_ms(out, residual_s)
+    on2 = _step_ms(run(Telemetry(ring=True)), residual_s)
+    off2 = _step_ms(run(None), residual_s)
+    off_ms, on_ms = statistics.median([off1, off2]), statistics.median([on1, on2])
+
+    counts = validate_jsonl(str(path))
+    with open(path) as fh:
+        spans = [e for e in map(json.loads, fh)
+                 if e["type"] == "span" and e["name"] == "solve/askotch"]
+    flops, nbytes = _tile_work(BLOCK, N_TRAIN, D, MAX_ITERS)
+    got_flops = delta.get('repro_tile_flops_total{dtype="f32"}')
+    got_bytes = delta.get('repro_tile_bytes_total{dtype="f32"}')
+    roof_ms = 1e3 * roofline_time_s(got_flops or 0.0, got_bytes or 0.0) / MAX_ITERS
+
+    tp = KRRProblem(x=x[:N_TUNE], y=y[:N_TUNE], kernel="rbf", precision="f32")
+    tune_path = OUT_DIR / "telemetry_tune.jsonl"
+    tune_path.unlink(missing_ok=True)
+    tel = Telemetry(jsonl=str(tune_path))
+    s0 = snapshot()
+    t0 = time.perf_counter()
+    res = tune(tp, sigmas=(SIGMA,), lams=TUNE_LAMS, folds=K_FOLDS, rank=RANK,
+               max_iters=TUNE_ITERS, tol=TUNE_TOL, seed=0, telemetry=tel)
+    tune_s = time.perf_counter() - t0
+    tdelta = diff(s0, snapshot())
+    tel.close()
+    tune_counts = validate_jsonl(str(tune_path))
+    pairs = tdelta.get("repro_kernel_pairs_total", 0.0)
+    cg_iters = tdelta.get("repro_cg_iterations_total", 0.0)
+
+    rec = {"phase": "telemetry", "step_ms_disabled": [off1, off2],
+           "step_ms_enabled": [on1, on2], "step_ms_disabled_median": off_ms,
+           "step_ms_enabled_median": on_ms, "step_ms_phase_solve": solve_rec["iter_ms"],
+           "disabled_vs_phase_solve": off_ms / solve_rec["iter_ms"] - 1.0,
+           "enabled_overhead": on_ms / off_ms - 1.0, "jsonl_counts": counts,
+           "history_records": len(out.history),
+           "span_dur_s": spans[0]["dur_s"] if spans else None,
+           "last_time_s": out.history[-1]["time_s"],
+           "tile_flops": got_flops, "tile_bytes": got_bytes, "tile_flops_want": flops,
+           "tile_bytes_want": nbytes, "roofline_step_ms": roof_ms,
+           "tune_seconds": tune_s, "tune_sweeps": res.sweeps, "tune_pairs": pairs,
+           "tune_cg_iterations": cg_iters, "tune_jsonl_counts": tune_counts}
+    emit(rec)
+    if counts.get("trace") != len(out.history) or counts.get("span") != 1:
+        fail(f"telemetry: {counts} events for {len(out.history)} history records")
+    if not spans or spans[0]["dur_s"] < out.history[-1]["time_s"]:
+        fail("telemetry: the solve/askotch span does not cover the last record")
+    if (got_flops, got_bytes) != (flops, nbytes):
+        fail(f"telemetry: tile counters {got_flops}, {got_bytes} != {flops}, {nbytes}")
+    if abs(off_ms / solve_rec["iter_ms"] - 1.0) > 0.02:
+        fail(f"telemetry: disabled step {off_ms} ms not within 2 % of phase solve's "
+             f"{solve_rec['iter_ms']} ms")
+    if not math.isclose(pairs, res.sweeps * N_TUNE**2, rel_tol=1e-12) or cg_iters <= 0:
+        fail(f"telemetry: tune pairs {pairs} != sweeps x n^2 = {res.sweeps * N_TUNE**2} "
+             f"or cg iterations {cg_iters}")
+    return rec
+
+
+def phase_estimators(solve_rec: dict, solve_w, tune_result) -> dict:
+    """The estimators on the card without scikit-learn: KernelRidge at the
+    taxi configuration against phase solve, KernelRidgeCV against a direct
+    ``tune()``, MultipleKernelRidgeCV against phase tune, and a precomputed
+    fit against the rbf fit of the same rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.krr import KRRProblem, evaluate
+    from repro_torch.core.solver_api import tune
+    from repro_torch.estimators import (
+        HAVE_SKLEARN,
+        KernelRidge,
+        KernelRidgeCV,
+        MultipleKernelRidgeCV,
+    )
+    from repro_torch.kernels import ops
+
+    x, y = taxi_data()
+    x_te, y_te = x[N_TRAIN:], y[N_TRAIN:]
+    est = KernelRidge(alpha=LAM_UNSCALED * N_TRAIN, kernel="rbf", sigma=SIGMA, solver="askotch",
+                      solver_opts=dict(block_size=BLOCK, rank=RANK, max_iters=MAX_ITERS,
+                                       eval_every=MAX_ITERS, seed=0))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    est.fit(x[:N_TRAIN], y[:N_TRAIN])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    pred = est.predict(x_te)
+    torch.cuda.synchronize()
+    predict_ms = 1e3 * (time.perf_counter() - t1)
+    kr_launches = ops.launches()
+    score = est.score(x_te, y_te)
+    rmse = float(evaluate(pred, y_te).rmse)
+    bitwise = bool(torch.equal(est.dual_coef_, solve_w))
+    w_err, w_ok = _err(est.dual_coef_, solve_w, "f32")
+
+    xs, ys = x[:N_TUNE], y[:N_TUNE]
+    alphas = tuple(N_TUNE * lam for lam in TUNE_LAMS)
+    tune_opts = dict(rank=RANK, max_iters=TUNE_ITERS, tol=TUNE_TOL)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cv = KernelRidgeCV(alphas=alphas, sigmas=CV_SIGMAS, cv=K_FOLDS, tune_opts=tune_opts).fit(xs, ys)
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    cv_launches = ops.launches()
+    direct = tune(KRRProblem(x=xs, y=ys, kernel="rbf", precision="f32"), sigmas=CV_SIGMAS,
+                  lams=tuple(a / N_TUNE for a in alphas), folds=K_FOLDS, policy="grid", seed=0,
+                  **tune_opts)
+    direct_best = {"alpha": float(direct.best["lam_unscaled"]) * N_TUNE,
+                   "sigma": direct.best["sigma"]}
+
+    w_rows = np.asarray([r["weights"] for r in tune_result.records[::len(TUNE_LAMS)]])
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    mk = MultipleKernelRidgeCV(kernels=MK_KERNELS, alphas=alphas, sigmas=(SIGMA,), cv=K_FOLDS,
+                               n_weight_samples=M_WEIGHTS, weights=w_rows,
+                               tune_opts=tune_opts).fit(xs, ys)
+    torch.cuda.synchronize()
+    mk_s = time.perf_counter() - t0
+    mk_launches = ops.launches()
+    mk_same = (mk.kernel_weights_ == tuple(tune_result.best["weights"])
+               and mk.alpha_ / N_TUNE == tune_result.best["lam_unscaled"])
+
+    xp, yp = x[:N_PRE], y[:N_PRE]
+    ops.reset_launches()
+    gram = ops.kernel_block(xp, xp, kernel="rbf", sigma=SIGMA)
+    cross = ops.kernel_block(x_te, xp, kernel="rbf", sigma=SIGMA)
+    pre = KernelRidge(alpha=PRE_ALPHA, kernel="precomputed").fit(gram, yp)
+    pre_pred = pre.predict(cross)
+    rbf_pred = KernelRidge(alpha=PRE_ALPHA, kernel="rbf", sigma=SIGMA).fit(xp, yp).predict(x_te)
+    pre_launches = ops.launches()
+    pre_err, pre_ok = _err(pre_pred, rbf_pred, "f32")
+
+    rec = {"phase": "estimators", "have_sklearn": HAVE_SKLEARN,
+           "kernel_ridge": {"n": N_TRAIN, "fit_s": fit_s, "solve_s": est.solve_info_["wall_time_s"],
+                            "predict_ms": predict_ms, "score": score, "test_rmse": rmse,
+                            "test_rmse_phase_solve": solve_rec["test_rmse"],
+                            "dual_coef_bitwise": bitwise, "dual_coef_max_abs_err": w_err,
+                            "launches": kr_launches},
+           "kernel_ridge_cv": {"n": N_TUNE, "seconds": cv_s, "sweeps": cv.tune_result_.sweeps,
+                               "best_params": cv.best_params_, "tune_best": direct_best,
+                               "refit_iters": cv.solve_info_.get("iters"),
+                               "launches": cv_launches},
+           "multiple_kernel_ridge_cv": {"n": N_TUNE, "seconds": mk_s,
+                                        "sweeps": mk.tune_result_.sweeps,
+                                        "best_params": mk.best_params_,
+                                        "phase_tune_best": {k: tune_result.best[k] for k in
+                                                            ("weights", "lam_unscaled")},
+                                        "launches": mk_launches},
+           "precomputed": {"n": N_PRE, "alpha": PRE_ALPHA, "max_abs_err": pre_err,
+                           "launches": pre_launches}}
+    emit(rec)
+    _on_card("estimators", w=est.dual_coef_, pred=pred, cv=cv.dual_coef_, mk=mk.dual_coef_,
+             pre=pre_pred)
+    _path_launches(kr_launches, ("kernel_matvec", "kernel_block"), "KernelRidge")
+    _path_launches(cv_launches, ("kernel_matvec", "kernel_block"), "KernelRidgeCV")
+    _path_launches(mk_launches, ("kernel_matvec_multi", "kernel_matvec_components",
+                                 "kernel_block_multi"), "MultipleKernelRidgeCV")
+    _path_launches(pre_launches, ("kernel_block",), "precomputed")
+    if not (bitwise or (w_ok and math.isclose(rmse, solve_rec["test_rmse"], rel_tol=TOL["f32"][0]))):
+        fail(f"KernelRidge: dual_coef_ (err {w_err}) or RMSE {rmse} off phase solve's "
+             f"{solve_rec['test_rmse']}")
+    if bitwise and rmse != solve_rec["test_rmse"]:
+        fail(f"KernelRidge: bitwise weights but RMSE {rmse} != {solve_rec['test_rmse']}")
+    if not (math.isfinite(score) and pred.shape == (N_TEST,)):
+        fail(f"KernelRidge: score {score}, prediction shape {tuple(pred.shape)}")
+    if cv.best_params_ != direct_best:
+        fail(f"KernelRidgeCV best {cv.best_params_} != tune()'s {direct_best}")
+    if not mk_same:
+        fail(f"MultipleKernelRidgeCV best {mk.best_params_} != phase tune's {tune_result.best}")
+    if not pre_ok:
+        fail(f"precomputed fit disagrees with the rbf fit: err {pre_err}")
+    return rec
+
+
+def phase_sap() -> list[dict]:
+    """The exact SAP methods on the tune rows: each with its own draws
+    until its residual falls below its start, then SAP_CHECK_STEPS steps
+    with injected indices on the card against the CPU plain run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sap
+    from repro_torch.core.krr import KRRProblem
+    from repro_torch.kernels import ops
+
+    x, y = taxi_data()
+    card = KRRProblem(x=x[:N_TUNE], y=y[:N_TUNE], sigma=SIGMA, lam_unscaled=SAP_LAM_UNSCALED)
+    cpu = KRRProblem(x=card.x.cpu(), y=card.y.cpu(), sigma=SIGMA, lam_unscaled=SAP_LAM_UNSCALED)
+    block = ("kernel_matvec", "kernel_block")
+    methods = (  # (name, step maker, injected draw, steps, the path's kernels)
+        ("randomized_newton", lambda p: sap.make_randomized_newton_step(p, SAP_B), "idx", 60,
+         block),
+        ("nsap", lambda p: sap.make_nsap_step(p, SAP_B, 0.01, N_TUNE / SAP_B), "idx", 60, block),
+        ("kaczmarz", sap.make_kaczmarz_step, "j", 400, ("kernel_block",)),
+        ("cd", sap.make_cd_step, "j", 400, ("kernel_block",)),
+    )
+    rng = np.random.default_rng(5)
+    recs = []
+    for name, make, kind, steps, kernels in methods:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        w = sap.run(card, make(card), steps, seed=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.launches()
+        rel = float(card.residual_report(w)[0])
+        draws = [rng.choice(N_TUNE, SAP_B, replace=False) if kind == "idx"
+                 else int(rng.integers(N_TUNE)) for _ in range(SAP_CHECK_STEPS)]
+        ws = []
+        for p in (card, cpu):
+            step, state = make(p), sap.init_state(p)
+            for draw in draws:
+                state = step(state, **{kind: draw})
+            ws.append(state.w)
+        err, ok = _err(ws[0].cpu(), ws[1], "f32")
+        rec = {"phase": "sap", "method": name, "n": N_TUNE, "d": D,
+               "b": SAP_B if kind == "idx" else 1, "lam_unscaled": SAP_LAM_UNSCALED,
+               "steps": steps, "seconds": seconds, "ms_a_step": 1e3 * seconds / steps,
+               "rel_residual": rel, "rel_residual_start": 1.0, "launches": launches,
+               "injected_steps": SAP_CHECK_STEPS, "vs_cpu_max_abs_err": err, "vs_cpu_ok": ok}
+        emit(rec)
+        _on_card(f"sap {name}", w=w)
+        _path_launches(launches, kernels, f"sap {name}")
+        if not (math.isfinite(rel) and rel < 1.0):
+            fail(f"sap {name}: residual {rel} not finite and below its start of 1.0")
+        if not ok:
+            fail(f"sap {name}: the card's iterate disagrees with the CPU's: err {err}")
+        recs.append(rec)
+    return recs
+
+
 def _time_ms(fn, reps: int = 5) -> float:
     import torch
 
@@ -1129,8 +1448,10 @@ def _time_ms(fn, reps: int = 5) -> float:
 def _bound_of(flops: float, nbytes: float) -> dict:
     """Least time for the work: the larger of its operations at the f32
     peak and its bytes (inputs read once, output written once) at the
-    memory peak."""
-    t_ops, t_bytes = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+    memory peak (``repro_torch.roofline.hw``)."""
+    from repro_torch.roofline import hw
+
+    t_ops, t_bytes = 1e3 * flops / hw.PEAK_FLOPS_F32, 1e3 * nbytes / hw.HBM_BW
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
@@ -1158,7 +1479,9 @@ def _bound_multi(m: int, n: int, d: int, t: int, kernels, kind: str) -> dict:
 
 def _sfu_floor_ms(m: int, n: int, kernels) -> float:
     """Least time of the special-function unit for an (m, n) t = 1 sweep."""
-    return 1e3 * m * n * sum(SFU_OPS[k] for k in kernels) / SFU_RESULTS_S
+    from repro_torch.roofline import hw
+
+    return 1e3 * m * n * sum(SFU_OPS[k] for k in kernels) / hw.SFU_RESULTS_S
 
 
 def main_path_inputs():
@@ -1367,20 +1690,31 @@ def _run_launcher(module: str, *args: str) -> dict:
 
 
 def phase_launch() -> dict:
-    report = _run_launcher("repro_torch.launch.krr_solve", "--method", "askotch", "--iters", "50")
-    emit({"phase": "launch", "report": report})
-    if list(report) != LAUNCHER_KEYS:
-        fail(f"launcher keys {list(report)} != the JAX launcher's {LAUNCHER_KEYS}")
+    from repro_torch.obs import validate_jsonl
+
+    OUT_DIR.mkdir(exist_ok=True)
+    solve_tel, tune_tel = OUT_DIR / "launch_solve.jsonl", OUT_DIR / "launch_tune.jsonl"
+    for p in (solve_tel, tune_tel):
+        p.unlink(missing_ok=True)
+    report = _run_launcher("repro_torch.launch.krr_solve", "--method", "askotch", "--iters", "50",
+                           "--telemetry", str(solve_tel))
+    emit({"phase": "launch", "report": report, "telemetry": validate_jsonl(str(solve_tel))})
+    if list(report) != LAUNCHER_KEYS + ["telemetry"]:
+        fail(f"launcher keys {list(report)} != the JAX launcher's {LAUNCHER_KEYS} + telemetry")
     if not (math.isfinite(report["rel_residual"]) and report["rel_residual"] < 1.0):
         fail(f"launcher rel_residual {report['rel_residual']}")
     tune_report = _run_launcher(
         "repro_torch.launch.krr_tune", "--kernels", ",".join(MK_KERNELS),
         "--n-weight-samples", str(M_WEIGHTS), "--n", "4000", "--iters", "100",
-        "--refit-iters", "100")
-    emit({"phase": "launch", "module": "krr_tune",
+        "--refit-iters", "100", "--telemetry", str(tune_tel))
+    tune_counts = validate_jsonl(str(tune_tel))
+    emit({"phase": "launch", "module": "krr_tune", "telemetry": tune_counts,
           "report": {k: v for k, v in tune_report.items() if k not in ("records", "trace")}})
-    if list(tune_report) != TUNE_LAUNCHER_KEYS:
-        fail(f"krr_tune keys {list(tune_report)} != the JAX launcher's {TUNE_LAUNCHER_KEYS}")
+    if list(tune_report) != TUNE_LAUNCHER_KEYS + ["telemetry"]:
+        fail(f"krr_tune keys {list(tune_report)} != the JAX launcher's {TUNE_LAUNCHER_KEYS} "
+             "+ telemetry")
+    if not (tune_counts.get("span", 0) >= 3 and tune_counts.get("trace", 0) >= 1):
+        fail(f"krr_tune --telemetry wrote {tune_counts}")
     if not math.isfinite(tune_report["refit"]["test_rmse"]):
         fail(f"krr_tune refit test_rmse {tune_report['refit']['test_rmse']}")
     return report
@@ -1406,10 +1740,14 @@ def main() -> int:
     phase_check()
     phase_check_multi()
     phase_check_determinism()
-    solve_rec = phase_solve()
+    solve_rec, solve_w = phase_solve()
+    phase_telemetry(solve_rec)
     tune_rec, tune_result = phase_tune()
     refit_rec = phase_refit(tune_result.best)
     baseline_recs = phase_baselines()
+    phase_estimators(solve_rec, solve_w, tune_result)
+    del solve_w
+    phase_sap()
     # each path's launch counts, from its own reset and read
     launches = {"solve": solve_rec["launches"], "tune": tune_rec["launches"],
                 "refit": refit_rec["launches"]}

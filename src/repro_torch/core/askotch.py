@@ -12,7 +12,8 @@ Per iteration (blocksize b, Nystrom rank r, n training points, t heads):
   8. iterate updates (+ Nesterov mixing for ASkotch), O(n t)
 
 Steps 1-5 are shared across the t heads.  The step runs eagerly and never
-reads a device value on the host; :func:`solve` syncs only at eval points.
+reads a device value on the host; :func:`solve` syncs only at eval points,
+:func:`solve_scan` not at all.
 The dense products K_BB @ omega and K_BB @ u stay ``torch.matmul`` in f32
 (TF32 off), as the JAX package leaves them to XLA.
 """
@@ -36,7 +37,9 @@ from repro_torch.core.nystrom import (
     stable_inv_apply_setup,
     woodbury_inv_apply,
 )
-from repro_torch.obs.trace import TraceRecorder
+from repro_torch.device import synchronize
+from repro_torch.obs.metrics import record_tile_work
+from repro_torch.obs.telemetry import as_telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,42 +248,78 @@ def solve(
     computed every ``eval_every`` iterations (and at the end); only there
     does the host read device values.  History records carry
     ``rel_residual`` (aggregate) and ``rel_residual_per_head``; the solve
-    converges when every head is below ``tol``.  ``telemetry`` must be None
-    until the port's telemetry slice.
+    converges when every head is below ``tol``.
+
+    ``telemetry`` (a ``repro_torch.obs.Telemetry``) adds a solve span,
+    canonical trace events mirroring the history records, and per-iteration
+    tile-work metrics; ``None`` (default) keeps the whole telemetry path to
+    one bool test an iteration, with no device synchronization.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry= is not yet ported to repro_torch (telemetry slice)"
-        )
     cfg = cfg or ASkotchConfig()
-    recorder = TraceRecorder()
+    tel = as_telemetry(telemetry)
+    solver_name = "askotch" if cfg.accelerated else "skotch"
+    n, b, d = problem.n, cfg.resolve_block(problem.n), problem.x.shape[1]
+    precision = problem.precision
+    recorder = tel.recorder(solver_name, precision=precision, n=n)
     probs = _maybe_arls_probs(problem, cfg, seed)
     step = make_step(problem, cfg, probs)
     state = init_state(problem, seed, w0)
-    t0 = time.perf_counter()
-    converged = False
-    it = 0
-    for it in range(1, max_iters + 1):
-        state, aux = step(state)
-        if it % eval_every == 0 or it == max_iters:
-            rel_agg, rel_heads = problem.residual_report(state.w)
-            heads = rel_heads.tolist()
-            rec = recorder.add(
-                it, float(rel_agg),
-                rel_residual_per_head=heads,
-                sketch_res=float(torch.linalg.vector_norm(state.sketch_res)),
-                step_L=float(aux.step_l),
-                time_s=time.perf_counter() - t0,
-            )
-            if callback:
-                callback(it, state, rec)
-            # every head must pass (NaN passes none)
-            if all(h < tol for h in heads):
-                converged = True
+    tel_enabled = tel.enabled  # hoisted: the loop pays one bool test
+    with tel.span(f"solve/{solver_name}", n=n, t=problem.t, b=b,
+                  max_iters=max_iters, tol=tol):
+        t0 = time.perf_counter()
+        converged = False
+        it = 0
+        for it in range(1, max_iters + 1):
+            state, aux = step(state)
+            if tel_enabled:
+                # per-step kernel-tile work: the K_BB block + the (b, n)
+                # row-block matvec (counted on the host, exact per step)
+                record_tile_work(b, b, d, precision)
+                record_tile_work(b, n, d, precision)
+            if it % eval_every == 0 or it == max_iters:
+                rel_agg, rel_heads = problem.residual_report(state.w)
+                heads = rel_heads.tolist()
+                rec = recorder.add(
+                    it, float(rel_agg),
+                    rel_residual_per_head=heads,
+                    sketch_res=float(torch.linalg.vector_norm(state.sketch_res)),
+                    step_L=float(aux.step_l),
+                    time_s=time.perf_counter() - t0,
+                )
+                if callback:
+                    callback(it, state, rec)
+                # every head must pass (NaN passes none)
+                if all(h < tol for h in heads):
+                    converged = True
+                    break
+            if time_budget_s is not None and time.perf_counter() - t0 > time_budget_s:
                 break
-        if time_budget_s is not None and time.perf_counter() - t0 > time_budget_s:
-            break
+        if tel_enabled:  # a budget stop ends on a step the host never read
+            synchronize(problem.device)
     return SolveResult(
         w=state.w, iters=it, history=recorder.history, converged=converged,
         wall_time_s=time.perf_counter() - t0,
     )
+
+
+def solve_scan(
+    problem: KRRProblem,
+    cfg: ASkotchConfig | None = None,
+    *,
+    num_iters: int = 100,
+    seed: int = 0,
+    w0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``num_iters`` steps with no residual evaluation and no host read (the
+    counterpart of the JAX package's ``lax.scan`` solve, as a plain loop):
+    returns (w, per-iteration sketched residuals — (iters,) or (iters, t))."""
+    cfg = cfg or ASkotchConfig()
+    probs = _maybe_arls_probs(problem, cfg, seed)
+    step = make_step(problem, cfg, probs)
+    state = init_state(problem, seed, w0)
+    res = []
+    for _ in range(num_iters):
+        state, _aux = step(state)
+        res.append(state.sketch_res)
+    return state.w, torch.stack(res)

@@ -35,6 +35,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.obs.metrics import counter as _obs_counter
 from repro_torch.obs.trace import TraceRecorder
 
 #: signature of the external-freeze hook: ``(it, x, rel_heads, frozen) ->
@@ -94,7 +95,7 @@ def blocked_cg(
     iterate; without one an internal recorder builds the same ``history``.
     """
     if recorder is None:
-        recorder = TraceRecorder()
+        recorder = TraceRecorder("cg")
     t0 = time.perf_counter() if t0 is None else t0
     tiny = torch.finfo(rhs.dtype).tiny
     rhs_norm_raw = torch.linalg.vector_norm(rhs, dim=0)  # (t,) true norms, may be 0
@@ -166,6 +167,11 @@ def blocked_cg(
         rz = rz_new * keep
         if time_budget_s is not None and time.perf_counter() - t0 > time_budget_s:
             break
+    if it:
+        _obs_counter(
+            "repro_cg_iterations_total",
+            help="blocked-CG iterations executed (all callers)",
+        ).inc(it)
     return BlockedCGResult(
         x=x, iters=it, history=history, converged=converged,
         frozen=ext_frozen if ext_frozen.any() else None,

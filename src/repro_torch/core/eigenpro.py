@@ -28,7 +28,9 @@ import torch
 
 from repro_torch.core.krr import KRRProblem
 from repro_torch.core.operator import as_multirhs, maybe_squeeze
-from repro_torch.obs.trace import TraceRecorder
+from repro_torch.device import synchronize
+from repro_torch.obs.metrics import record_tile_work
+from repro_torch.obs.telemetry import as_telemetry
 
 
 @dataclasses.dataclass
@@ -60,12 +62,10 @@ def solve_eigenpro(
     walks a fresh ``torch.randperm(n)``, all from one generator seeded with
     ``seed``, unless ``sub_idx`` / ``perms`` (one permutation an epoch)
     inject them.  The full residual is evaluated every ``eval_every``
-    steps.  ``telemetry`` must be None until the port's telemetry slice.
+    steps.  ``telemetry`` adds a span, trace events, and per-batch tile
+    metrics.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry= is not yet ported to repro_torch (telemetry slice)"
-        )
+    tel = as_telemetry(telemetry)
     t0 = time.perf_counter()
     n, dev = problem.n, problem.device
     op = problem.op
@@ -100,23 +100,35 @@ def solve_eigenpro(
         w.index_add_(0, sub_idx, corr, alpha=eta)
 
     w = torch.zeros_like(y)
-    recorder = TraceRecorder()
+    recorder = tel.recorder("eigenpro", n=n)
+    tel_enabled = tel.enabled
+    d = x.shape[1]
     steps_per_epoch = n // bs
     it = 0
-    for ep in range(epochs):
-        perm = (torch.randperm(n, generator=gen, device=dev) if perms is None
-                else perms[ep].to(device=dev, dtype=torch.int64))
-        for sidx in range(steps_per_epoch):
-            step(w, perm[sidx * bs:(sidx + 1) * bs])
-            it += 1
-            if it % eval_every == 0:
-                rel_agg, rel_heads = problem.residual_report(w)
-                recorder.add(
-                    it, float(rel_agg), rel_residual_per_head=rel_heads.tolist(),
-                    time_s=time.perf_counter() - t0,
-                )
-            if time_budget_s is not None and time.perf_counter() - t0 > time_budget_s:
-                return EigenProResult(maybe_squeeze(w, squeeze), it, recorder.history,
-                                      time.perf_counter() - t0)
+    with tel.span("solve/eigenpro", n=n, t=problem.t, rank=rank, bs=bs,
+                  epochs=epochs):
+        try:
+            for ep in range(epochs):
+                perm = (torch.randperm(n, generator=gen, device=dev) if perms is None
+                        else perms[ep].to(device=dev, dtype=torch.int64))
+                for sidx in range(steps_per_epoch):
+                    step(w, perm[sidx * bs:(sidx + 1) * bs])
+                    it += 1
+                    if tel_enabled:
+                        # (bs, n) gradient pass + (s, bs) correction pass
+                        record_tile_work(bs, n, d)
+                        record_tile_work(s, bs, d)
+                    if it % eval_every == 0:
+                        rel_agg, rel_heads = problem.residual_report(w)
+                        recorder.add(
+                            it, float(rel_agg), rel_residual_per_head=rel_heads.tolist(),
+                            time_s=time.perf_counter() - t0,
+                        )
+                    if time_budget_s is not None and time.perf_counter() - t0 > time_budget_s:
+                        return EigenProResult(maybe_squeeze(w, squeeze), it, recorder.history,
+                                              time.perf_counter() - t0)
+        finally:
+            if tel_enabled:  # the last batch update is never read
+                synchronize(dev)
     return EigenProResult(maybe_squeeze(w, squeeze), it, recorder.history,
                           time.perf_counter() - t0)

@@ -22,6 +22,9 @@ from repro_torch.core.blocked_cg import blocked_cg
 from repro_torch.core.krr import KRRProblem
 from repro_torch.core.nystrom import cholesky_or_nan
 from repro_torch.core.operator import as_multirhs, maybe_squeeze
+from repro_torch.device import synchronize
+from repro_torch.obs.metrics import record_tile_work
+from repro_torch.obs.telemetry import as_telemetry
 
 
 @dataclasses.dataclass
@@ -51,12 +54,9 @@ def solve_falkon(
 ) -> FalkonResult:
     """Falkon solve with ``m`` uniformly sampled centers (the first m of
     ``torch.randperm(n)`` from a generator seeded with ``seed``, or the
-    injected ``centers_idx``).  ``telemetry`` must be None until the port's
-    telemetry slice."""
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry= is not yet ported to repro_torch (telemetry slice)"
-        )
+    injected ``centers_idx``).  ``telemetry`` adds a span + canonical
+    trace events + tile-work metrics."""
+    tel = as_telemetry(telemetry)
     t0 = time.perf_counter()
     n, dev = problem.n, problem.device
     if centers_idx is None:
@@ -95,8 +95,19 @@ def solve_falkon(
     y, squeeze = as_multirhs(problem.y)
     rhs = to_precond(op.row_block_matvec(op_m.x, y))  # (m, t)
     # plain blocked CG on the Falkon-preconditioned operator (pinv = None)
-    res = blocked_cg(operator, rhs, max_iters=max_iters, tol=tol, t0=t0,
-                     time_budget_s=time_budget_s)
+    with tel.span("solve/falkon", n=n, m=m, t=problem.t, max_iters=max_iters,
+                  tol=tol):
+        res = blocked_cg(operator, rhs, max_iters=max_iters, tol=tol, t0=t0,
+                         time_budget_s=time_budget_s,
+                         recorder=tel.recorder("falkon", n=n))
+        if tel.enabled:
+            # each CG iteration streams K_nm and K_mn (plus one K_mn for the
+            # RHS setup and the m^2 block build)
+            d = problem.x.shape[1]
+            record_tile_work(n, m, d, count=res.iters)
+            record_tile_work(m, n, d, count=res.iters + 1)
+            record_tile_work(m, m, d)
+            synchronize(dev)  # the last update is never read
     return FalkonResult(
         w=maybe_squeeze(from_beta(res.x), squeeze),
         centers_idx=centers_idx,

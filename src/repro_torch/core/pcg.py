@@ -33,6 +33,9 @@ from repro_torch.core.krr import KRRProblem
 from repro_torch.core.nystrom import NystromFactors, nystrom_from_sketch
 from repro_torch.core.operator import as_multirhs, maybe_squeeze
 from repro_torch.core.rpcholesky import rp_cholesky
+from repro_torch.device import synchronize
+from repro_torch.obs.metrics import record_tile_work
+from repro_torch.obs.telemetry import as_telemetry
 
 
 @dataclasses.dataclass
@@ -139,23 +142,31 @@ def solve_pcg(
     ``rel_residual_per_head``; convergence requires every column below tol.
     ``w0`` warm-starts the iteration at the cost of one extra matvec.
     ``omega`` / ``pivots`` / ``freqs`` / ``phases`` inject the
-    preconditioner's draws.  ``telemetry`` must be None until the port's
-    telemetry slice.
+    preconditioner's draws.  ``telemetry`` adds a solve span, canonical
+    per-iteration trace events, and tile-work metrics.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry= is not yet ported to repro_torch (telemetry slice)"
+    tel = as_telemetry(telemetry)
+    n, d = problem.n, problem.x.shape[1]
+    precision = problem.precision
+    recorder = tel.recorder("pcg", precision=precision, n=n)
+    with tel.span("solve/pcg", n=n, t=problem.t, precond=precond, rank=rank,
+                  max_iters=max_iters, tol=tol):
+        t0 = time.perf_counter()
+        pinv = make_preconditioner(problem, precond, rank, rho_mode, seed, omega=omega,
+                                   pivots=pivots, freqs=freqs, phases=phases)
+        op, lam = problem.op, problem.lam
+        y, squeeze = as_multirhs(problem.y)
+        x0 = None if w0 is None else as_multirhs(torch.as_tensor(w0, device=problem.device))[0]
+        res = blocked_cg(
+            lambda v: op.k_lam_matvec(v, lam), y, pinv, x0=x0, max_iters=max_iters, tol=tol,
+            t0=t0, time_budget_s=time_budget_s, recorder=recorder,
         )
-    t0 = time.perf_counter()
-    pinv = make_preconditioner(problem, precond, rank, rho_mode, seed, omega=omega,
-                               pivots=pivots, freqs=freqs, phases=phases)
-    op, lam = problem.op, problem.lam
-    y, squeeze = as_multirhs(problem.y)
-    x0 = None if w0 is None else as_multirhs(torch.as_tensor(w0, device=problem.device))[0]
-    res = blocked_cg(
-        lambda v: op.k_lam_matvec(v, lam), y, pinv, x0=x0, max_iters=max_iters, tol=tol,
-        t0=t0, time_budget_s=time_budget_s,
-    )
+        if tel.enabled:
+            # each CG iteration streams one full (n, n) K matvec; the warm
+            # start costs one extra for the initial residual
+            record_tile_work(n, n, d, precision,
+                             count=res.iters + (1 if x0 is not None else 0))
+            synchronize(problem.device)  # the last update is never read
     return PCGResult(
         w=maybe_squeeze(res.x, squeeze), iters=res.iters, history=res.history,
         converged=res.converged, wall_time_s=time.perf_counter() - t0,

@@ -24,7 +24,9 @@ import torch
 
 from repro_torch.core import askotch, direct, eigenpro, falkon, pcg
 from repro_torch.core.krr import KRRProblem
+from repro_torch.device import synchronize
 from repro_torch.kernels.precision import check_precision
+from repro_torch.obs.telemetry import as_telemetry
 
 METHODS = (
     "askotch",
@@ -138,7 +140,8 @@ def solve(problem: KRRProblem, method: str = "askotch", *, mesh=None, **kw) -> S
       mesh: must be None until the distributed slice.
       **kw: exactly :data:`METHOD_OPTIONS[method]`, plus the universal
         ``kernel=``, ``weights=`` and ``precision=`` overrides and
-        ``telemetry=`` (must be None until the telemetry slice).
+        ``telemetry=`` (a ``repro_torch.obs.Telemetry``: the method's span,
+        trace events and tile-work metrics).
 
     Returns:
       A :class:`SolveOutput`: ``w`` ((n,), (n, t), or (m[, t]) for Falkon's
@@ -198,11 +201,11 @@ def solve(problem: KRRProblem, method: str = "askotch", *, mesh=None, **kw) -> S
             predict_fn=lambda xt: problem.predict(res.w, xt),
         )
     else:  # direct
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry= is not yet ported to repro_torch (telemetry slice)"
-            )
-        w = direct.solve_direct(problem)
+        tel = as_telemetry(telemetry)
+        with tel.span("solve/direct", n=problem.n, t=problem.t):
+            w = direct.solve_direct(problem)
+            if tel.enabled:  # the span covers the factorization's device work
+                synchronize(problem.device)
         return SolveOutput(
             method=method,
             w=w,
@@ -235,8 +238,8 @@ def tune(problem: KRRProblem, *, mesh=None, **kw):
       mesh: must be None until the distributed slice.
       **kw: any of :data:`TUNE_OPTIONS` — or, on the multi-kernel path,
         :data:`MULTIKERNEL_TUNE_OPTIONS`; unknown options raise ValueError
-        with the accepted list.  ``telemetry`` must be None until the
-        telemetry slice.
+        with the accepted list.  ``telemetry`` records the search span,
+        per-group spans and the stacked solves' trace events.
 
     Returns:
       A :class:`repro_torch.core.tune.TuneResult`; refit with

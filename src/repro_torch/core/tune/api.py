@@ -8,8 +8,10 @@ defaults: grid / random search, shared vs naive strategy, ``policy=``
 single-kernel sweep is the multi-kernel sweep without a weight matrix (the
 engine's q = 1 case).
 
-Not ported yet: ``mesh=`` (the distributed slice) and ``telemetry=`` (the
-telemetry slice) raise ``NotImplementedError`` unless None.
+``telemetry=`` records a search span, per-sigma-group spans and canonical
+trace events (solver ``"tune"``, with running ``sweeps``) from every
+stacked solve.  Not ported yet: ``mesh=`` (the distributed slice) raises
+``NotImplementedError`` unless None.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from repro_torch.core.tune.policies import (
     TuneSpace,
     make_policy,
 )
+from repro_torch.obs.telemetry import as_telemetry
 
 SEARCHES = ("grid", "random")
 STRATEGIES = ("shared", "naive")
@@ -187,6 +190,7 @@ def run_search(
     sigma_continuation: bool,
     mesh,
     extra_info: dict[str, Any] | None = None,
+    telemetry=None,
 ) -> TuneResult:
     """Drive ``policy`` over the stacked engine and assemble a TuneResult.
 
@@ -194,8 +198,11 @@ def run_search(
     entry point re-states the problem as the kernel tuple being searched);
     ``problem`` supplies ``y`` and the best-config ``precision``.  Single-
     and multi-kernel searches, all three policies and both strategies flow
-    through here.
+    through here.  ``telemetry`` adds a per-group span and canonical trace
+    events (solver ``"tune"``, with running ``sweeps``) from every stacked
+    solve.
     """
+    tel = as_telemetry(telemetry)
     n = problem.n
     # the single-kernel random search draws from this stream; the
     # multi-kernel weight matrix was already drawn from its own
@@ -221,19 +228,26 @@ def run_search(
         if strategy == "shared":
             op = operator_for(base_problem, group.sigma, mesh)
             rung_iters = policy.rungs(group, max_iters)
-            gr = solve_sigma_group(
-                op, y_np, group, val_folds, rank=min(rank, n),
-                max_iters=max_iters, tol=tol, seed=seed,
-                warm_start=warm_start, counter=counter,
-                rung_iters=rung_iters,
-                prune_fn=(
-                    lambda ri, it, scores, active, g=group: policy.prune(
-                        g, ri, it, scores, active
-                    )
-                ),
-                continuation=cont,
-                want_continuation=sigma_continuation,
-            )
+            # the group ends in a host read of its predictions, so the span
+            # covers the device work
+            with tel.span("tune/group", sigma=group.sigma,
+                          candidates=group.n_candidates):
+                gr = solve_sigma_group(
+                    op, y_np, group, val_folds, rank=min(rank, n),
+                    max_iters=max_iters, tol=tol, seed=seed,
+                    warm_start=warm_start, counter=counter,
+                    rung_iters=rung_iters,
+                    prune_fn=(
+                        lambda ri, it, scores, active, g=group: policy.prune(
+                            g, ri, it, scores, active
+                        )
+                    ),
+                    continuation=cont,
+                    want_continuation=sigma_continuation,
+                    recorder=tel.recorder(
+                        "tune", sweep_counter=counter, n=n
+                    ) if tel.enabled else None,
+                )
             iters_by_sigma[group.sigma] = gr.iters
             cont = gr.continuation  # None unless sigma_continuation
             group_records: list[dict[str, Any]] = []
@@ -378,15 +392,11 @@ def _record(
     return rec
 
 
-def _not_ported(mesh, telemetry) -> None:
+def _not_ported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not yet ported to repro_torch; mesh-bound tuning "
             "arrives with the distributed slice"
-        )
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry= is not yet ported to repro_torch (telemetry slice)"
         )
 
 
@@ -509,14 +519,19 @@ def tune(
       warm_start: start each column from the Woodbury apply of the shared
         sketch instead of zero ("shared" strategy only; costs no kernel
         sweeps).
-      mesh / telemetry: must be None (distributed and telemetry slices).
+      mesh: must be None (the distributed slice).
+      telemetry: optional ``repro_torch.obs.Telemetry`` — records a search
+        span, per-sigma-group spans, canonical trace events from every
+        stacked solve (with running ``sweeps``) and, through the engine's
+        ``SweepCounter`` and ``blocked_cg``, the ``repro_kernel_pairs_total``
+        and ``repro_cg_iterations_total`` counters.
 
     Returns:
       A :class:`TuneResult`; ``result.best`` is the serving-ready config,
       ``result.sweeps`` the kernel-tile work consumed, and ``result.trace``
       the per-candidate audit trail (rung scores + prune points).
     """
-    _not_ported(mesh, telemetry)
+    _not_ported(mesh)
     if search not in SEARCHES:
         raise ValueError(f"unknown search {search!r}; accepted: {SEARCHES}")
     _common_validation(
@@ -528,12 +543,17 @@ def tune(
         lams=tuple(float(lv) for lv in lams),
         num_samples=num_samples,
     )
-    return run_search(
-        problem, problem, space, resolved,
-        folds=folds, strategy=strategy, rank=rank, max_iters=max_iters,
-        tol=tol, seed=seed, warm_start=warm_start,
-        sigma_continuation=sigma_continuation, mesh=mesh,
-    )
+    with as_telemetry(telemetry).span(
+        "tune/search", n=problem.n, folds=folds, policy=resolved.name,
+        strategy=strategy,
+    ):
+        return run_search(
+            problem, problem, space, resolved,
+            folds=folds, strategy=strategy, rank=rank, max_iters=max_iters,
+            tol=tol, seed=seed, warm_start=warm_start,
+            sigma_continuation=sigma_continuation, mesh=mesh,
+            telemetry=telemetry,
+        )
 
 
 def tune_multikernel(
@@ -593,7 +613,7 @@ def tune_multikernel(
       :func:`apply_best` — ``best_w0`` the winner's
       fold-averaged warm start, and ``trace`` the per-candidate audit trail.
     """
-    _not_ported(mesh, telemetry)
+    _not_ported(mesh)
     from repro_torch.core.multikernel import canonical_kernels
 
     if kernels is None:
@@ -638,14 +658,19 @@ def tune_multikernel(
     mk_problem = dataclasses.replace(
         problem, kernel=kernels, sigma=1.0, weights=None
     )
-    return run_search(
-        problem, mk_problem, space, resolved,
-        folds=folds, strategy=strategy, rank=rank, max_iters=max_iters,
-        tol=tol, seed=seed, warm_start=warm_start,
-        sigma_continuation=sigma_continuation, mesh=mesh,
-        extra_info={
-            "q": q,
-            "kernels": list(kernels),
-            "weight_samples": int(w_cands.shape[0]),
-        },
-    )
+    with as_telemetry(telemetry).span(
+        "tune/search-multikernel", n=problem.n, folds=folds, q=q,
+        policy=resolved.name, strategy=strategy,
+    ):
+        return run_search(
+            problem, mk_problem, space, resolved,
+            folds=folds, strategy=strategy, rank=rank, max_iters=max_iters,
+            tol=tol, seed=seed, warm_start=warm_start,
+            sigma_continuation=sigma_continuation, mesh=mesh,
+            extra_info={
+                "q": q,
+                "kernels": list(kernels),
+                "weight_samples": int(w_cands.shape[0]),
+            },
+            telemetry=telemetry,
+        )

@@ -32,6 +32,7 @@ from repro_torch.core.blocked_cg import blocked_cg
 from repro_torch.core.krr import KRRProblem, scaled_lam
 from repro_torch.core.nystrom import nystrom_from_sketch
 from repro_torch.core.operator import as_multirhs
+from repro_torch.obs.metrics import counter as _obs_counter
 
 __all__ = [
     "Continuation",
@@ -55,16 +56,24 @@ class SweepCounter:
     ``pairs`` counts (row, col) kernel evaluations touched by matvec work; a
     multi-RHS matvec touches the same tiles as a single-RHS one, so the
     natural unit is a *sweep* = one full pass over the n x n tile grid
-    (``pairs / n**2``).  (The reference also feeds each tally into a global
-    ``repro_kernel_pairs_total`` counter; that feed arrives with the port's
-    telemetry slice.)
+    (``pairs / n**2``).
+
+    Every ``add_matvec`` also feeds the identical quantity into the global
+    ``repro_kernel_pairs_total`` telemetry counter (``repro_torch.obs.metrics``),
+    so per-search accounting (``TuneResult.sweeps``, the local ``pairs``
+    float) and the process-wide metric can never disagree.
     """
 
     pairs: float = 0.0
 
     def add_matvec(self, rows: int, cols: int, count: int = 1) -> None:
         """Tally ``count`` matvec passes over a (rows, cols) tile grid."""
-        self.pairs += float(rows) * float(cols) * count
+        q = float(rows) * float(cols) * count
+        self.pairs += q
+        _obs_counter(
+            "repro_kernel_pairs_total",
+            help="kernel pair evaluations tallied by tuning sweep accounting",
+        ).inc(q)
 
     def sweeps(self, n: int) -> float:
         """Pair tally in full-K sweep units (``pairs / n**2``)."""

@@ -19,3 +19,11 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def synchronize(device: str | torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op off CUDA).  Telemetry
+    calls it, only when enabled, before closing a span whose region ends in
+    no host read of a device value."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -15,7 +15,10 @@ as the JAX launcher's: ``--iters`` is ``max_iters`` (EigenPro runs
 ``max(1, iters // 100)`` epochs, direct takes no option), Falkon uses
 ``m = min(1000, max(50, n // 20), n)`` centers and reports
 ``rel_residual = -1.0`` (its inducing-point weights have no full-K
-residual).  TF32 is off for every f32 matmul.
+residual).  ``--telemetry PATH`` writes the solve's span, trace events and
+metrics as JSONL (``repro_torch.obs``; summarize it with
+``python -m repro_torch.obs.report PATH``).  TF32 is off for every f32
+matmul.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from repro_torch.core.kernels import KERNEL_NAMES
 from repro_torch.core.krr import KRRProblem, evaluate, evaluate_per_head
 from repro_torch.core.solver_api import solve as solve_any
 from repro_torch.data import synthetic
+from repro_torch.obs import Telemetry
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -52,6 +56,9 @@ def main(argv: list[str] | None = None) -> dict:
                     choices=["regression", "classification", "one-vs-all", "taxi"])
     ap.add_argument("--classes", type=int, default=4,
                     help="number of one-vs-all heads (dataset=one-vs-all)")
+    ap.add_argument("--telemetry", default=None, metavar="PATH",
+                    help="write telemetry (spans + solver traces + metrics) "
+                         "as JSONL to PATH (repro_torch.obs)")
     ap.add_argument("--device", default="cuda",
                     help="torch device for data and kernels (cuda | cpu)")
     args = ap.parse_args(argv)
@@ -86,7 +93,13 @@ def main(argv: list[str] | None = None) -> dict:
     if args.method == "falkon":
         # default center count, clamped so tiny-n runs stay sampleable
         kw["m"] = min(1000, max(50, args.n // 20), args.n)
+    tel = None
+    if args.telemetry:
+        tel = Telemetry(jsonl=args.telemetry)
+        kw["telemetry"] = tel
     out = solve_any(prob, args.method, **kw)
+    if tel is not None:
+        tel.close()  # flush metric events after the solve span closes
     info = {"method": args.method, **out.info}
     if args.method == "falkon":  # inducing-point weights: full-K residual undefined
         rel, rel_heads = -1.0, None
@@ -104,6 +117,8 @@ def main(argv: list[str] | None = None) -> dict:
         "test_acc": float(m.accuracy),
         "seconds": round(time.perf_counter() - t0, 2),
     }
+    if args.telemetry:
+        report["telemetry"] = args.telemetry
     if prob.t > 1:
         mh = evaluate_per_head(pred, y_te)
         if rel_heads is not None:

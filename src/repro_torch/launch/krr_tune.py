@@ -18,12 +18,15 @@ grows the weight axis.  After the sweep the best config is refit on the
 full training set with ``--method`` (default askotch, warm-started from the
 winner's fold-averaged CV solution) and scored on held-out test data;
 ``--export PATH`` writes the best-config JSON with the per-candidate
-``trace``.  The JSON line has the JAX launcher's keys in its order.
+``trace``; ``--telemetry PATH`` writes the search's and the refit's spans,
+trace events and metrics as JSONL (``repro_torch.obs``; summarize it with
+``python -m repro_torch.obs.report PATH``).  The JSON line has the JAX
+launcher's keys in its order.
 
 ``--device`` (default ``cuda``) picks where the data and every kernel sweep
-live; ``cuda`` without a card is an error.  ``--mesh`` (distributed slice),
-``--telemetry`` (telemetry slice) and ``--export-artifact`` (serving slice)
-are accepted as flags and raise ``NotImplementedError``.
+live; ``cuda`` without a card is an error.  ``--mesh`` (distributed slice)
+and ``--export-artifact`` (serving slice) are accepted as flags and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from repro_torch.core.solver_api import METHOD_OPTIONS, tune
 from repro_torch.core.solver_api import solve as solve_any
 from repro_torch.core.tune import apply_best
 from repro_torch.data import synthetic
+from repro_torch.obs import Telemetry
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -99,8 +103,8 @@ def main(argv: list[str] | None = None) -> dict:
                     help="write a full serving artifact directory here "
                          "(not yet ported: serving slice)")
     ap.add_argument("--telemetry", default=None, metavar="PATH",
-                    help="write telemetry as JSONL to PATH (not yet ported: "
-                         "telemetry slice)")
+                    help="write telemetry (spans + tune traces + metrics) "
+                         "as JSONL to PATH (repro_torch.obs)")
     ap.add_argument("--device", default="cuda",
                     help="torch device for data and kernels (cuda | cpu)")
     args = ap.parse_args(argv)
@@ -109,9 +113,6 @@ def main(argv: list[str] | None = None) -> dict:
     if args.mesh is not None:
         raise NotImplementedError(
             "--mesh is not yet ported to repro_torch (distributed slice)")
-    if args.telemetry:
-        raise NotImplementedError(
-            "--telemetry is not yet ported to repro_torch (telemetry slice)")
     if args.export_artifact:
         raise NotImplementedError(
             "--export-artifact is not yet ported to repro_torch (serving slice)")
@@ -146,6 +147,10 @@ def main(argv: list[str] | None = None) -> dict:
         seed=args.seed,
         sigma_continuation=args.sigma_continuation,
     )
+    tel = None
+    if args.telemetry:
+        tel = Telemetry(jsonl=args.telemetry)
+        tune_kw["telemetry"] = tel
     if args.policy is not None:
         tune_kw.update(policy=args.policy, halving_eta=args.halving_eta)
     if args.kernels is not None:
@@ -184,6 +189,8 @@ def main(argv: list[str] | None = None) -> dict:
     if not args.no_refit:
         best_prob, w0 = apply_best(prob, result, with_w0=True)
         kw = {"max_iters": args.refit_iters}
+        if tel is not None:
+            kw["telemetry"] = tel  # the refit rides the same JSONL stream
         if w0 is not None and "w0" in METHOD_OPTIONS.get(args.method, ()):
             # warm-start the refit from the winner's fold-averaged CV
             # solution instead of zero
@@ -198,6 +205,9 @@ def main(argv: list[str] | None = None) -> dict:
             "test_acc": float(m.accuracy),
         }
     report["seconds"] = round(time.perf_counter() - t0, 2)
+    if tel is not None:
+        tel.close()  # flush metric events after all spans close
+        report["telemetry"] = args.telemetry
 
     if args.export:
         # the best config PLUS the audit trail

@@ -378,7 +378,7 @@ def test_solver_api_fail_fast():
         solve(p, "askotch", kernel=("rbf", "gauss"), max_iters=1)
     with pytest.raises(ValueError, match="weights="):
         solve(p, "askotch", weights=(1.0,), max_iters=1)
-    with pytest.raises(NotImplementedError, match="telemetry"):
+    with pytest.raises(TypeError, match="telemetry"):
         solve(p, "askotch", telemetry=object(), max_iters=1)
     with pytest.raises(ValueError, match="unknown precision"):
         solve(p, "askotch", precision="f16", max_iters=1)

@@ -299,7 +299,7 @@ def test_solve_runs_every_ported_method_and_fails_fast():
         with pytest.raises(ValueError, match=r"unknown option\(s\) \['bogus'\].*accepted"):
             solve(p, method, bogus=1)
         if method != "askotch":
-            with pytest.raises(NotImplementedError, match="telemetry"):
+            with pytest.raises(TypeError, match="telemetry"):
                 solve(p, method, telemetry=object(), **small.get(method, {"max_iters": 1}))
     with pytest.raises(NotImplementedError, match="distributed slice"):
         solve(p, "dc")

@@ -1,10 +1,11 @@
 """Card-only tests of the port: the hand-written CUDA kernels against their
 plain PyTorch versions, one ASkotch step on the card against the same step
-on the CPU, and a multi-kernel operator whose every primitive launches the
-multi-kernel CUDA kernels.
+on the CPU, a multi-kernel operator whose every primitive launches the
+multi-kernel CUDA kernels, the baselines, the estimators and the SAP steps
+on the card against the CPU, and a telemetry-enabled solve.
 
-This file imports neither JAX nor the JAX package, so it runs on a machine
-with a card and no JAX:
+This file imports neither JAX nor the JAX package nor scikit-learn, so it
+runs on a machine with a card and none of them:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -14,6 +15,8 @@ atol 2e-5 scaled by max(1, |ref|max) (summation order differs), bf16
 (0.05, 0.02) (one bf16 ulp of a kernel value can differ where the f32
 distances round differently).
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -499,3 +502,93 @@ def test_cuda_baseline_matches_cpu(cuda_device, rng, method):
         out[str(dev)] = _baseline_solve(method, prob, draws, dev).cpu().numpy()
     want = out["cpu"]
     assert np.linalg.norm(out["cuda"] - want) / np.linalg.norm(want) < 1e-3
+
+
+def _estimator_data(rng, n=2000, d=6, m=300):
+    x = rng.standard_normal((n + m, d)).astype(np.float32)
+    y = (np.sin(x[:, 0]) + 0.3 * x[:, 1] + 0.1 * rng.standard_normal(n + m)).astype(np.float32)
+    return x[:n], y[:n], x[n:], y[n:]
+
+
+@pytest.mark.cuda
+def test_cuda_estimators_match_cpu(cuda_device, rng):
+    """The estimators at n = 2000 with ``device="cuda"`` (direct: K from
+    ``kernel_block``, cuSOLVER; the CV search on the CUDA kernels) against
+    ``device="cpu"`` on the same numpy inputs: predictions within 1e-3
+    relative, the same CV winner, CV MSEs within 1e-2 relative (the search's
+    sketch draws come from each device's generator).  No scikit-learn is
+    needed: ``score`` is the port's torch R²."""
+    from repro_torch.estimators import KernelRidge, KernelRidgeCV
+
+    x, y, xt, yt = _estimator_data(rng)
+    got = KernelRidge(alpha=1.0, sigma=1.5).fit(x, y)  # device defaults to cuda
+    want = KernelRidge(alpha=1.0, sigma=1.5, device="cpu").fit(x, y)
+    pred = got.predict(xt)
+    assert pred.device.type == "cuda" and got.dual_coef_.dtype == torch.float32
+    ref = want.predict(xt).numpy()
+    assert np.linalg.norm(pred.cpu().numpy() - ref) / np.linalg.norm(ref) < 1e-3
+    assert got.score(xt, yt) == pytest.approx(want.score(xt, yt), rel=1e-3)
+    gram = ops.kernel_block(_t(x).to(cuda_device), _t(x).to(cuda_device), kernel="rbf",
+                            sigma=1.5)
+    cross = ops.kernel_block(_t(xt).to(cuda_device), _t(x).to(cuda_device), kernel="rbf",
+                             sigma=1.5)
+    pre = KernelRidge(alpha=1.0, kernel="precomputed").fit(gram, _t(y).to(cuda_device))
+    assert np.linalg.norm(pre.predict(cross).cpu().numpy() - ref) / np.linalg.norm(ref) < 1e-3
+    kw = dict(alphas=(0.01, 1.0, 100.0), sigmas=(0.5, 2.0), cv=3)
+    cv_got = KernelRidgeCV(**kw).fit(x, y)
+    cv_want = KernelRidgeCV(device="cpu", **kw).fit(x, y)
+    assert cv_got.best_params_ == cv_want.best_params_
+    np.testing.assert_allclose(cv_got.cv_results_["mean_test_mse"],
+                               cv_want.cv_results_["mean_test_mse"], rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_telemetry_solve_jsonl_validates(cuda_device, rng, tmp_path):
+    """An ASkotch solve on the card with ``Telemetry(jsonl=...)``: the file
+    validates, one trace event a history record, the solve span covers the
+    last record, and the tile counters follow ``record_tile_work``."""
+    from repro_torch.obs import Telemetry, diff, snapshot, validate_jsonl
+
+    x, y, _, _ = _estimator_data(rng)
+    prob = KRRProblem(x=_t(x).to(cuda_device), y=_t(y).to(cuda_device), lam_unscaled=1e-4)
+    path = str(tmp_path / "run.jsonl")
+    tel = Telemetry(jsonl=path)
+    s0 = snapshot()
+    res = askotch.solve(prob, askotch.ASkotchConfig(block_size=200, rank=20), max_iters=6,
+                        eval_every=3, telemetry=tel)
+    delta = diff(s0, snapshot())
+    tel.close()
+    counts = validate_jsonl(path)
+    assert counts["trace"] == len(res.history) == 2
+    with open(path) as fh:
+        events = [json.loads(line) for line in fh]
+    (span,) = [e for e in events if e["type"] == "span"]
+    assert span["dur_s"] >= res.history[-1]["time_s"]
+    assert delta['repro_tile_flops_total{dtype="f32"}'] == 6 * (200 * 200 + 200 * 2000) * (2 * 6 + 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["newton", "nsap", "kaczmarz", "cd"])
+def test_cuda_sap_step_matches_cpu(cuda_device, rng, name):
+    """Ten SAP steps on the card (``kernel_block`` K_BB and rows,
+    ``kernel_matvec`` block residuals) against the CPU with the same
+    injected draws: iterates within 1e-4 relative."""
+    from repro_torch.core import sap
+
+    n, b = 2000, 100
+    x, y, _, _ = _estimator_data(rng, n=n)
+    make = {"newton": lambda p: sap.make_randomized_newton_step(p, b),
+            "nsap": lambda p: sap.make_nsap_step(p, b, 0.01, n / b),
+            "kaczmarz": sap.make_kaczmarz_step, "cd": sap.make_cd_step}[name]
+    draws = [rng.choice(n, b, replace=False) if name in ("newton", "nsap")
+             else int(rng.integers(n)) for _ in range(10)]
+    kind = "idx" if name in ("newton", "nsap") else "j"
+    out = {}
+    for dev in ("cpu", cuda_device):
+        prob = KRRProblem(x=_t(x).to(dev), y=_t(y).to(dev), sigma=1.5, lam_unscaled=1e-3)
+        step, state = make(prob), sap.init_state(prob)
+        for draw in draws:
+            state = step(state, **{kind: draw})
+        out[str(dev)] = state.w.cpu().numpy()
+    want = out["cpu"]
+    assert np.linalg.norm(out["cuda"] - want) / np.linalg.norm(want) < 1e-4

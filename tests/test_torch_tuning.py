@@ -253,7 +253,7 @@ def test_tune_routing_and_validation(data):
         tune_multikernel(p, kernels=("rbf", "laplacian"), policy="grid", **small)
     with pytest.raises(NotImplementedError, match="distributed slice"):
         api_tune(p, mesh=object(), **small)
-    with pytest.raises(NotImplementedError, match="telemetry slice"):
+    with pytest.raises(TypeError, match="telemetry"):
         api_tune(p, telemetry=object(), **small)
     with pytest.raises(ValueError, match="folds must be in"):
         tune(p, sigmas=(1.0,), lams=(1e-2,), folds=1)
@@ -306,7 +306,6 @@ def test_tune_launcher_keys_match_reference(capsys, monkeypatch, tmp_path):
     assert list(report["refit"]) == list(j_report["refit"])
     assert report["refit_warm_start"] is True and np.isfinite(report["refit"]["test_rmse"])
     assert json.loads(export.read_text()) == {**report["best"], "trace": report["trace"]}
-    for flag, slice_name in (("--mesh", "distributed"), ("--telemetry", "telemetry"),
-                             ("--export-artifact", "serving")):
+    for flag, slice_name in (("--mesh", "distributed"), ("--export-artifact", "serving")):
         with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
             t_launch.main([*argv, "--device", "cpu", flag, "x"])
