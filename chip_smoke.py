@@ -43,11 +43,19 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                128-column strip, m and n below one tile) and, at
                SAME_EDGES, with b the same tensor as a (the symmetric
                path) and a copy of it.  440 checks.
+  3b'. check_split — both t = 1 kernels (kernel_matvec, every kernel; the
+               weighted matvec, every MULTI_CASES combination) on the route
+               that splits n over the grid (m <= 4096), f32 and bf16, against
+               their plain versions: m in SPLIT_M (1, 8, 63, 64, 65, 1024),
+               d in SPLIT_D (9, 16, 17, 37) and n below one staged tile (no
+               split), at 40 tiles and one either side.  One line a
+               (d, n, m) with the ranges S.
   3c. determinism — two launches of each t = 1 kernel (kernel_matvec, the
-               weighted matvec) at the solve's G_B shape, of the weighted
-               block at the refit's K_BB, of the stacked matvec at the
-               tune's sketch and of kernel_matvec's column path at t = 100
-               (20,000^2 x 100) are bitwise equal.
+               weighted matvec) at the solve's G_B shape and at a serving
+               bucket (64 x 10^6, split), of the weighted block at the
+               refit's K_BB, of the stacked matvec at the tune's sketch and
+               of kernel_matvec's column path at t = 100 (20,000^2 x 100)
+               are bitwise equal.
   4. solve   — the main path through ``solver_api.solve("askotch")`` at the
                paper's taxi configuration (d = 9, rbf, sigma = 1,
                lam_unscaled = 2e-7, b = 50,000, r = 100, f32), with n cut
@@ -122,11 +130,25 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                each with its own draws until its residual is below its
                start of 1; then 10 steps with injected indices on the card
                against the CPU plain run, within the f32 tolerance.
+  6e. serve  — ``repro_torch.serving.ServingEngine`` on the card (max_batch
+               1024, max_wait 5 ms) at n = 10^6: phase 4's model saved as an
+               artifact, loaded and warmed (8 buckets), then 2,000 requests
+               of 1-16 taxi test rows, Poisson at 2,000 requests/s from 4
+               client threads; phase 6's multi-kernel model (the weighted
+               t = 1 path) and a 10-head rbf model (random weights from a
+               seed: kernel_matvec's column path at small m), 500 requests
+               each.  Held: every response within the f32 tolerance of the
+               plain version, the threaded responses bitwise the sequential
+               closure's, the wrapper's launches = warm launches + bucket
+               runs, and 8 rows bitwise the same in buckets 8, 64 and 1024.
+               Printed: p50 / p99 ms, qps, per-bucket runs and fill.
   7. time    — each kernel at the main path's shapes (CUDA events, median
                of 5 after warm-up) beside its plain version and its bound,
                with the kernel's result held against the plain one there;
                also kernel_matvec for the 10^4 prediction queries and for
-               64 (the small-m case), and the multi-kernel kernels at the
+               serving's buckets of 8, 64 (the small-m case) and 1024
+               queries, at t = 10 for 64 queries, the weighted matvec for 64
+               queries, and the multi-kernel kernels at the
                tune's, the refit's and the prediction's shapes; the two
                t = 1 G_B rows carry the special-function floor
                (``sfu_floor_ms``) beside the bound.  The baselines' shapes:
@@ -137,15 +159,17 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                one row per (kernel, path shape), each with the launches of
                that path.
   8. launch  — ``python -m repro_torch.launch.krr_solve --method askotch
-               --iters 50`` and ``python -m repro_torch.launch.krr_tune
-               --kernels rbf,laplacian,matern52 --n 4000`` on cuda, both
+               --iters 50``, ``python -m repro_torch.launch.krr_tune
+               --kernels rbf,laplacian,matern52 --n 4000 --export-artifact
+               DIR`` and ``python -m repro_torch.launch.krr_serve --artifact
+               demo=DIR --requests 200 --rate 500 --prometheus`` on cuda, all
                with ``--telemetry`` (their JSONL files validate); their JSON
                keys must be the JAX launchers'.
 
-Each of the paths in phases 4-6d sets every launch count to 0 just before
+Each of the paths in phases 4-6e sets every launch count to 0 just before
 it runs and reads the counts just after; a kernel of the path that was
-never launched fails the run.  Phases run in the order 1-3c, 4, 4b, 5, 6,
-6b, 6c, 6d, 7, 8.
+never launched fails the run.  Phases run in the order 1-3b', 3c, 4, 4b, 5,
+6, 6b, 6c, 6d, 6e, 7, 8.
 
 It imports nothing of JAX or of the JAX package.  Full build logs go to
 ``chiprun_out/chip_smoke_build.log``.
@@ -201,8 +225,20 @@ LAUNCHER_KEYS = [
 TUNE_LAUNCHER_KEYS = [
     "best", "strategy", "search", "policy", "candidates", "folds", "kernel_sweeps",
     "naive_sweep_estimate", "records", "trace", "weight_samples", "refit_warm_start",
-    "refit", "seconds",
+    "refit", "exported_artifact", "seconds",
 ]
+
+# keys of the report ``python -m repro.launch.krr_serve --artifact ...
+# --requests N --prometheus --telemetry PATH`` prints
+# (src/repro/launch/krr_serve.py:91-138), of a loaded model's info
+# (src/repro/serving/engine.py:306-313), of the engine's stats
+# (src/repro/serving/engine.py:473-478) and of a model's stats
+# (src/repro/serving/engine.py:193-209)
+SERVE_LAUNCHER_KEYS = ["loaded", "traffic", "stats", "prometheus", "telemetry"]
+SERVE_LOADED_KEYS = ["model", "version", "d", "bytes", "warmed_buckets", "evicted"]
+SERVE_STATS_KEYS = ["models", "evictions", "bytes", "max_bytes"]
+SERVE_MODEL_KEYS = ["model", "version", "n_requests", "n_rows", "qps", "p50_ms", "p99_ms",
+                    "mean_ms", "occupancy", "compile_cache_depth", "bytes"]
 
 TOL = {"f32": (2e-4, 2e-5), "bf16": (0.05, 0.02)}
 
@@ -431,8 +467,9 @@ def phase_check_determinism() -> None:
     """Two launches of each redesigned kernel at its main-path shape give
     bitwise equal results: the t = 1 kernels at the solve's G_B (50,000 x
     10^6, d = 9), the weighted block at the refit's K_BB (50,000^2), the
-    stacked matvec at the tune's sketch (20,000^2 x 100) and kernel_matvec
-    on its column path at a rank-100 sketch (20,000^2 x 100)."""
+    stacked matvec at the tune's sketch (20,000^2 x 100), kernel_matvec
+    on its column path at a rank-100 sketch (20,000^2 x 100), and both t = 1
+    kernels on the split route at a serving bucket (64 x 10^6)."""
     import torch
 
     from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda
@@ -459,6 +496,11 @@ def phase_check_determinism() -> None:
             xt, xt, omega, kernels=MK_KERNELS, sigmas=sg, precision="f32")),
         "kernel_matvec (t = 100)": ([N_TUNE, N_TUNE, D, RANK], lambda: kernel_matvec_cuda(
             xt, xt, omega, kernel="rbf", sigma=SIGMA, precision="f32")),
+        "kernel_matvec (split, m = 64)": ([SMALL_M, N_TRAIN, D, 1], lambda: kernel_matvec_cuda(
+            xb[:SMALL_M], x, z, kernel="rbf", sigma=SIGMA, precision="f32")),
+        "kernel_matvec_multi (split, m = 64)": (
+            [SMALL_M, N_TRAIN, D, 1], lambda: kernel_matvec_multi_cuda(
+                xb[:SMALL_M], x, z, w, kernels=MK_KERNELS, sigmas=sg, precision="f32")),
     }
     for name, (shape, fn) in runs.items():
         first = fn()
@@ -852,7 +894,7 @@ def phase_tune() -> tuple[dict, object]:
     return rec, result
 
 
-def phase_refit(best: dict) -> dict:
+def phase_refit(best: dict) -> tuple[dict, object]:
     import dataclasses
 
     import torch
@@ -927,7 +969,7 @@ def phase_refit(best: dict) -> dict:
                           ("prediction", pred_ok, pred_err), ("residual pass", kw_ok, kw_err)):
         if not ok:
             fail(f"refit: {name} disagrees with its plain version: err {err}")
-    return rec
+    return rec, out.w
 
 
 #: the paper's baseline set (benchmarks/bench_fig1_showdown.py:25-31) with
@@ -1429,6 +1471,263 @@ def phase_sap() -> list[dict]:
     return recs
 
 
+#: rows of A the split route of the t = 1 sweep is held at (phase
+#: check_split): one row, a bucket of 8, a block's 64 rows and one either
+#: side, and a 16-block bucket; feature widths 9 and 16 (256-row staged
+#: tiles) and 17 and 37 (the slab loop, 64-row tiles)
+SPLIT_M = (1, 8, 63, 64, 65, 1024)
+SPLIT_D = (9, 16, 17, 37)
+
+
+def split_ns(d: int) -> dict:
+    """n on the split route's edges at width d: below one staged tile (no
+    split), at a multiple of it (40 tiles) and one either side of it."""
+    tile = 256 if d <= 16 else 64
+    return {"below": tile - 1, "multiple": 40 * tile, "minus1": 40 * tile - 1,
+            "plus1": 40 * tile + 1}
+
+
+def phase_check_split() -> dict:
+    """kernel_matvec (every kernel) and the weighted matvec (every
+    MULTI_CASES combination) at t = 1 on the split route's edges, f32 and
+    bf16, against their plain versions: m in SPLIT_M, d in SPLIT_D, n in
+    split_ns(d).  One line a (d, n, m) with the ranges S of the split."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.kernels import KERNEL_NAMES
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda, t1_splits
+    from repro_torch.kernels.multi import kernel_matvec_multi_cuda
+
+    lib = _build.load("kernel_matvec")
+    sigma = 1.5
+    gen = torch.Generator().manual_seed(16)
+    rng = np.random.default_rng(16)
+    worst = {"kernel_matvec": 0.0, "kernel_matvec_multi": 0.0}
+    n_checks = 0
+    for d in SPLIT_D:
+        for edge, n in split_ns(d).items():
+            b = (torch.randn((n, d), generator=gen) / math.sqrt(d)).cuda()
+            v = torch.randn((n,), generator=gen).cuda()
+            for m in SPLIT_M:
+                a = (torch.randn((m, d), generator=gen) / math.sqrt(d)).cuda()
+                errs = {"kernel_matvec": 0.0, "kernel_matvec_multi": 0.0}
+
+                def check(name, label, prec, got, want):
+                    nonlocal n_checks
+                    torch.cuda.synchronize()
+                    err, ok = _err(got, want, prec)
+                    if not ok:
+                        fail(f"{name} {label} {prec} d={d} n={n} m={m} (split): err {err}")
+                    errs[name] = max(errs[name], err)
+                    n_checks += 1
+
+                for prec in ("f32", "bf16"):
+                    for kern in KERNEL_NAMES:
+                        check("kernel_matvec", kern, prec,
+                              kernel_matvec_cuda(a, b, v, kernel=kern, sigma=sigma,
+                                                 precision=prec),
+                              ref.kernel_matvec(a, b, v, sigma, kernel=kern, precision=prec))
+                    for kernels, sigmas in MULTI_CASES:
+                        w = tuple(float(x) for x in rng.dirichlet(np.ones(len(kernels))))
+                        check("kernel_matvec_multi", "+".join(kernels), prec,
+                              kernel_matvec_multi_cuda(a, b, v, w, kernels=kernels,
+                                                       sigmas=sigmas, precision=prec),
+                              ref.kernel_matvec_multi(a, b, v, sigmas,
+                                                      torch.tensor(w, device="cuda"),
+                                                      kernels=kernels, precision=prec))
+                emit({"check": "split", "d": d, "n": n, "edge": edge, "m": m,
+                      "splits": t1_splits(lib, m, n, d), "max_abs_err": errs, "ok": True})
+                for k, e in errs.items():
+                    worst[k] = max(worst[k], e)
+            if (t1_splits(lib, 8, n, d) > 1) != (edge != "below"):
+                fail(f"split route at d={d} n={n}: {t1_splits(lib, 8, n, d)} ranges")
+    rec = {"phase": "check_split", "m": SPLIT_M, "d": SPLIT_D, "checks": n_checks,
+           "splits_taxi": [t1_splits(lib, m, N_TRAIN, D) for m in (1, 64, 4096, 4097)],
+           "worst_abs_err": worst}
+    emit(rec)
+    return rec
+
+
+# phase serve: the engine's settings and its traffic (the JAX package's
+# krr_serve launcher defaults: max_batch 1024, max_wait 5 ms, requests of
+# 1..16 rows), the taxi model's load and the two side models'
+SERVE_MAX_BATCH, SERVE_WAIT_MS, SERVE_MAX_ROWS = 1024, 5.0, 16
+SERVE_REQUESTS, SERVE_RATE, SERVE_CLIENTS = 2_000, 2_000.0, 4
+SERVE_SIDE_REQUESTS = 500
+
+
+def _serve_traffic(engine, name: str, pool, requests: int, seed: int) -> dict:
+    """Open-loop Poisson traffic at SERVE_RATE from SERVE_CLIENTS threads
+    (each at SERVE_RATE / SERVE_CLIENTS), requests of 1..SERVE_MAX_ROWS rows
+    drawn from ``pool`` (host numpy); waits for every response.  Returns
+    the queries, the responses, the wall seconds and the engine's stats."""
+    import threading
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    per = requests // SERVE_CLIENTS
+    plans = []
+    for _ in range(SERVE_CLIENTS):
+        arrivals = np.cumsum(rng.exponential(SERVE_CLIENTS / SERVE_RATE, size=per))
+        queries = [pool[rng.integers(0, pool.shape[0], size=int(q))]
+                   for q in rng.integers(1, SERVE_MAX_ROWS + 1, size=per)]
+        plans.append((arrivals, queries))
+    futures = [[None] * per for _ in range(SERVE_CLIENTS)]
+    errors = []
+
+    def client(c):
+        try:
+            arrivals, queries = plans[c]
+            for i, (t_arr, xq) in enumerate(zip(arrivals, queries)):
+                lag = t_arr - (time.monotonic() - t0)
+                if lag > 0:
+                    time.sleep(lag)
+                futures[c][i] = engine.submit(name, xq)
+        except Exception as exc:  # reported by the main thread
+            errors.append(exc)
+
+    engine.reset_stats(name)
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        if t.is_alive():
+            fail(f"serve {name}: a client thread did not finish")
+    if errors:
+        fail(f"serve {name}: a client failed: {errors[0]!r}")
+    engine.drain(timeout=300)
+    seconds = time.monotonic() - t0
+    queries = [q for _, qs in plans for q in qs]
+    outs = [f.result() for fs in futures for f in fs]
+    return {"queries": queries, "outs": outs, "seconds": seconds, "stats": engine.stats(name)}
+
+
+def _serve_model(engine, name: str, config: dict, x, w, requests: int, seed: int,
+                 wrapper: str, plain, pool, path: str | None = None) -> dict:
+    """Load (from an artifact at ``path``, else from memory) and warm one
+    model, replay traffic, then hold it: every response within the f32
+    tolerance of ``plain`` (the plain version over all requests' rows at
+    once), the threaded responses bitwise the sequential closure's, and
+    ``wrapper``'s launches = warm launches + bucket runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import bucket_sizes
+    from repro_torch.serving.krr_serve import make_krr_predict_fn_from_config
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    info = (engine.load_model(name, path) if path
+            else engine.register(name, config, x, w))
+    load_s = time.perf_counter() - t0
+    warm = ops.launches()[wrapper]
+    traffic = _serve_traffic(engine, name, pool, requests, seed)
+    launches = ops.launches()
+    st = traffic["stats"]
+    runs = sum(o["runs"] for o in st["occupancy"].values())
+    # the plain version over every request's rows, one call
+    rows = np.concatenate(traffic["queries"])
+    want = plain(torch.from_numpy(rows).cuda())
+    got = torch.from_numpy(np.concatenate(traffic["outs"])).cuda()
+    err, ok = _err(got, want, "f32")
+    del want, got
+    predict = make_krr_predict_fn_from_config(config, x, w, max_batch=SERVE_MAX_BATCH)
+    same = all(np.array_equal(predict(q).cpu().numpy(), o)
+               for q, o in zip(traffic["queries"], traffic["outs"]))
+    rec = {"phase": "serve", "model": name, "kernel": config["kernel"],
+           "heads": 1 if w.ndim == 1 else int(w.shape[1]), "n": int(x.shape[0]),
+           "requests": requests, "offered_rps": SERVE_RATE, "clients": SERVE_CLIENTS,
+           "rows": int(rows.shape[0]), "seconds": traffic["seconds"],
+           "achieved_rps": requests / traffic["seconds"], "load_s": load_s,
+           "warmed_buckets": info["warmed_buckets"], "qps": st["qps"], "p50_ms": st["p50_ms"],
+           "p99_ms": st["p99_ms"], "mean_ms": st["mean_ms"],
+           "bucket_runs": {b: o["runs"] for b, o in st["occupancy"].items()},
+           "bucket_fill": {b: o["fill"] for b, o in st["occupancy"].items()},
+           "compile_cache_depth": st["compile_cache_depth"], "launches": launches,
+           "warm_launches": warm, "bucket_runs_total": runs,
+           "max_abs_err": err, "ok": ok, "bitwise_sequential": same}
+    emit(rec)
+    if st["n_requests"] != requests:
+        fail(f"serve {name}: {st['n_requests']} of {requests} requests served")
+    if warm != len(bucket_sizes(SERVE_MAX_BATCH)) or launches[wrapper] != warm + runs:
+        fail(f"serve {name}: {wrapper} launched {launches[wrapper]} times, "
+             f"warm {warm} + bucket runs {runs} expected")
+    if not ok:
+        fail(f"serve {name}: responses disagree with the plain version: err {err}")
+    if not same:
+        fail(f"serve {name}: threaded responses differ from sequential predict")
+    return rec
+
+
+def phase_serve(solve_w, refit_best: dict, refit_w) -> list[dict]:
+    """The serving engine on the card at full width (n = 10^6 taxi rows):
+    phase solve's model saved as an artifact and loaded, 2,000 requests;
+    phase refit's multi-kernel model (the weighted t = 1 path) and a
+    10-head model (random weights from a seed; kernel_matvec's column path
+    at small m), 500 requests each.  Also the same 8 rows bitwise in
+    buckets of 8, 64 and 1024 rows."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.serving.engine import ServingEngine, save_model_artifact
+    from repro_torch.serving.krr_serve import make_krr_predict_fn_from_config
+
+    x, _ = taxi_data()
+    xt = x[:N_TRAIN]
+    pool = x[N_TRAIN:].cpu().numpy()  # the queries: the taxi test rows
+    cfg = {"kernel": "rbf", "sigma": SIGMA, "lam_unscaled": LAM_UNSCALED, "precision": "f32"}
+    art = OUT_DIR / "serve_artifacts" / "taxi"
+    t0 = time.perf_counter()
+    save_model_artifact(str(art), cfg, xt, solve_w)
+    save_s = time.perf_counter() - t0
+    kernels = tuple(refit_best["kernel"])
+    mk_cfg = {"kernel": list(kernels), "sigma": refit_best["sigma"],
+              "weights": list(refit_best["weights"]), "precision": "f32"}
+    mk_sig = (float(refit_best["sigma"]),) * len(kernels)
+    mk_w = torch.tensor(refit_best["weights"], device="cuda")
+    w_heads = torch.randn((N_TRAIN, OVA_HEADS),
+                          generator=torch.Generator(device="cuda").manual_seed(17), device="cuda")
+    recs = []
+    with ServingEngine(max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS) as engine:
+        recs.append(_serve_model(
+            engine, "taxi", cfg, xt, solve_w, SERVE_REQUESTS, 21, "kernel_matvec",
+            lambda q: ref.kernel_matvec(q, xt, solve_w, SIGMA), pool, path=str(art)))
+        recs.append(_serve_model(
+            engine, "taxi_multikernel", mk_cfg, xt, refit_w, SERVE_SIDE_REQUESTS, 22,
+            "kernel_matvec_multi",
+            lambda q: ref.kernel_matvec_multi(q, xt, refit_w, mk_sig, mk_w, kernels=kernels),
+            pool))
+        recs.append(_serve_model(
+            engine, f"taxi_{OVA_HEADS}_heads", {"kernel": "rbf", "sigma": SIGMA}, xt, w_heads,
+            SERVE_SIDE_REQUESTS, 23, "kernel_matvec",
+            lambda q: ref.kernel_matvec(q, xt, w_heads, SIGMA), pool))
+    shutil.rmtree(art.parent)  # 40 MB: the output directory keeps logs, not models
+    # the same 8 rows in buckets of 8, 64 and 1024 rows, other rows beside them
+    predict = make_krr_predict_fn_from_config(cfg, xt, solve_w, max_batch=SERVE_MAX_BATCH)
+    rows = pool[:8]
+    base = predict(rows).cpu().numpy()
+    same = {}
+    for bucket, at in ((64, 37), (1024, 1000)):
+        q = pool[100:100 + bucket].copy()
+        q[at:at + 8] = rows
+        same[bucket] = bool(np.array_equal(predict(q)[at:at + 8].cpu().numpy(), base))
+    emit({"phase": "serve", "check": "buckets", "rows": 8, "buckets": [8, 64, 1024],
+          "bitwise_equal": same, "artifact_save_s": save_s})
+    if not all(same.values()):
+        fail(f"serve: the same rows score differently across buckets: {same}")
+    return recs
+
+
 def _time_ms(fn, reps: int = 5) -> float:
     import torch
 
@@ -1511,11 +1810,13 @@ def _time_case(fn, plain_fn, bound: dict) -> dict:
 def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: list[dict]
                ) -> list[dict]:
     """Time every kernel at its main-path shapes.  ``launches`` holds each
-    path's counts (``"solve"``, ``"tune"``, ``"refit"``: each path's reset
-    and read), ``weights`` the refit's combination, ``tune_wc`` the
-    tune's (q, C) per-column weights and ``baselines`` phase
-    ``baselines``' records (their launches and the sketch's time).  One row
-    per (kernel, path shape)."""
+    path's counts (``"solve"``, ``"tune"``, ``"refit"``, and phase serve's
+    models ``"serve taxi"``, ``"serve multikernel"``, ``"serve heads"``:
+    each path's reset and read), ``weights`` the refit's combination,
+    ``tune_wc`` the tune's (q, C) per-column weights and ``baselines``
+    phase ``baselines``' records (their launches and the sketch's time).
+    One row per (kernel, path shape); ``path`` names the run whose count
+    ``launches`` is."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1550,19 +1851,26 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
                       lambda: ref.kernel_block(xb, xb, SIGMA, kernel="rbf"),
                       _bound(BLOCK, BLOCK, D, None))},
     ]
-    # the solve's prediction (10^4 queries), and the small-m limit: SMALL_M
-    # queries fill one row tile, so one SM works
+    rows[0]["path"], rows[1]["path"] = "solve", "solve"
+    mv_id = {k: rows[0][k] for k in ("name", "route", "source", "replaces", "library_ms")}
+    # the solve's prediction (10^4 queries), and serving's buckets of 8,
+    # SMALL_M (the small_m row) and 1024 queries: fewer row tiles than SMs,
+    # so the t = 1 sweep splits n over the grid
     xq = xb[:N_TEST].contiguous()
-    extra = [{"name": "kernel_matvec", "case": "solve prediction", "shape": [N_TEST, N_TRAIN, D, 1],
+    rows += [{**mv_id, "case": "solve prediction", "path": "solve",
+              "launches": launches["solve"]["kernel_matvec"], "shape": [N_TEST, N_TRAIN, D, 1],
               **_time_case(lambda: kernel_matvec_cuda(xq, x, z, kernel="rbf", sigma=SIGMA,
                                                       precision="f32"),
                            lambda: ref.kernel_matvec(xq, x, z, SIGMA, kernel="rbf"),
-                           _bound(N_TEST, N_TRAIN, D, 1))},
-             {"name": "kernel_matvec", "case": "small_m", "shape": [SMALL_M, N_TRAIN, D, 1],
-              **_time_case(lambda: kernel_matvec_cuda(q, x, z, kernel="rbf", sigma=SIGMA,
-                                                      precision="f32"),
-                           lambda: ref.kernel_matvec(q, x, z, SIGMA, kernel="rbf"),
-                           _bound(SMALL_M, N_TRAIN, D, 1))}]
+                           _bound(N_TEST, N_TRAIN, D, 1))}]
+    for m_q, case in ((8, "serve bucket 8"), (SMALL_M, "small_m"), (1024, "serve bucket 1024")):
+        rows.append({**mv_id, "case": case, "path": "serve taxi",
+                     "launches": launches["serve taxi"]["kernel_matvec"],
+                     "shape": [m_q, N_TRAIN, D, 1],
+                     **_time_case(lambda: kernel_matvec_cuda(xb[:m_q], x, z, kernel="rbf",
+                                                             sigma=SIGMA, precision="f32"),
+                                  lambda: ref.kernel_matvec(xb[:m_q], x, z, SIGMA, kernel="rbf"),
+                                  _bound(m_q, N_TRAIN, D, 1))})
 
     # the multi-kernel kernels: (rbf, laplacian, matern52), sigma 1
     ks, sg = MK_KERNELS, (SIGMA,) * len(MK_KERNELS)
@@ -1574,8 +1882,9 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
     wc = torch.from_numpy(tune_wc).cuda()
     vc = torch.randn((N_TUNE, wc.shape[1]), generator=gen, device="cuda")
     multi = {"route": "cuda", "source": src, "library_ms": None}
+    tune_path, refit_path = {"path": "tune"}, {"path": "refit"}
     rows += [
-        {"name": "kernel_matvec_multi", "case": "tune matvec_cols", **multi,
+        {"name": "kernel_matvec_multi", "case": "tune matvec_cols", **multi, **tune_path,
          "replaces": "src/repro/kernels/multi.py:127",
          "launches": launches["tune"]["kernel_matvec_multi"],
          "shape": [N_TUNE, N_TUNE, D, wc.shape[1]],
@@ -1583,7 +1892,7 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
                                                        precision="f32"),
                       lambda: ref.kernel_matvec_multi(xt, xt, vc, sg, wc, kernels=ks),
                       _bound_multi(N_TUNE, N_TUNE, D, wc.shape[1], ks, "cols"))},
-        {"name": "kernel_matvec_multi", "case": "refit G_B", **multi,
+        {"name": "kernel_matvec_multi", "case": "refit G_B", **multi, **refit_path,
          "replaces": "src/repro/kernels/multi.py:127",
          "launches": launches["refit"]["kernel_matvec_multi"],
          "shape": [BLOCK, N_TRAIN, D, 1],
@@ -1593,6 +1902,7 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
                       _bound_multi(BLOCK, N_TRAIN, D, 1, ks, "matvec")),
          "sfu_floor_ms": _sfu_floor_ms(BLOCK, N_TRAIN, ks)},
         {"name": "kernel_matvec_components", "case": "tune sketch_components", **multi,
+         **tune_path,
          "replaces": "src/repro/kernels/multi.py:187",
          "launches": launches["tune"]["kernel_matvec_components"],
          "shape": [N_TUNE, N_TUNE, D, RANK],
@@ -1600,7 +1910,7 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
                                                             precision="f32"),
                       lambda: ref.kernel_matvec_components(xt, xt, omega, sg, kernels=ks),
                       _bound_multi(N_TUNE, N_TUNE, D, RANK, ks, "components"))},
-        {"name": "kernel_block_multi", "case": "refit K_BB", **multi,
+        {"name": "kernel_block_multi", "case": "refit K_BB", **multi, **refit_path,
          "replaces": "src/repro/kernels/multi.py:237",
          "launches": launches["refit"]["kernel_block_multi"],
          "shape": [BLOCK, BLOCK, D],
@@ -1609,25 +1919,42 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
                       lambda: ref.kernel_block_multi(xb, xb, sg, weights, kernels=ks),
                       _bound_multi(BLOCK, BLOCK, D, 0, ks, "block"))},
     ]
-    extra += [
-        {"name": "kernel_matvec_multi", "case": "refit prediction",
+    mm_id = {"name": "kernel_matvec_multi", **multi, "replaces": "src/repro/kernels/multi.py:127"}
+    rows += [
+        {**mm_id, "case": "refit prediction", **refit_path,
+         "launches": launches["refit"]["kernel_matvec_multi"],
          "shape": [N_TEST, N_TRAIN, D, 1],
          **_time_case(lambda: kernel_matvec_multi_cuda(xq, x, z, weights, kernels=ks, sigmas=sg,
                                                        precision="f32"),
                       lambda: ref.kernel_matvec_multi(xq, x, z, sg, w_t, kernels=ks),
                       _bound_multi(N_TEST, N_TRAIN, D, 1, ks, "matvec"))},
+        {**mm_id, "case": "serve bucket 64 (weighted)", "path": "serve multikernel",
+         "launches": launches["serve multikernel"]["kernel_matvec_multi"],
+         "shape": [SMALL_M, N_TRAIN, D, 1],
+         **_time_case(lambda: kernel_matvec_multi_cuda(q, x, z, weights, kernels=ks, sigmas=sg,
+                                                       precision="f32"),
+                      lambda: ref.kernel_matvec_multi(q, x, z, sg, w_t, kernels=ks),
+                      _bound_multi(SMALL_M, N_TRAIN, D, 1, ks, "matvec"))},
     ]
-    # kernel_matvec at a one-vs-all G_B of OVA_HEADS heads, on the column
-    # path's narrow width
+    # kernel_matvec with OVA_HEADS heads on the column path's narrow width:
+    # a one-vs-all G_B, and a serving bucket of SMALL_M queries (no split at
+    # t > 1: one row tile, so few SMs work)
     z_ova = torch.randn((N_TRAIN, OVA_HEADS), generator=torch.Generator(device="cuda").manual_seed(15),
                         device="cuda")
-    extra += [
-        {"name": "kernel_matvec", "case": f"one-vs-all G_B (t = {OVA_HEADS})",
+    heads_path = {"path": "serve heads", "launches": launches["serve heads"]["kernel_matvec"]}
+    rows += [
+        {**mv_id, "case": f"one-vs-all G_B (t = {OVA_HEADS})", **heads_path,
          "shape": [BLOCK, N_TRAIN, D, OVA_HEADS],
          **_time_case(lambda: kernel_matvec_cuda(xb, x, z_ova, kernel="rbf", sigma=SIGMA,
                                                  precision="f32"),
                       lambda: ref.kernel_matvec(xb, x, z_ova, SIGMA, kernel="rbf"),
                       _bound(BLOCK, N_TRAIN, D, OVA_HEADS))},
+        {**mv_id, "case": f"serve bucket 64 (t = {OVA_HEADS})", **heads_path,
+         "shape": [SMALL_M, N_TRAIN, D, OVA_HEADS],
+         **_time_case(lambda: kernel_matvec_cuda(q, x, z_ova, kernel="rbf", sigma=SIGMA,
+                                                 precision="f32"),
+                      lambda: ref.kernel_matvec(q, x, z_ova, SIGMA, kernel="rbf"),
+                      _bound(SMALL_M, N_TRAIN, D, OVA_HEADS))},
     ]
     del z_ova
     # the baselines' new shapes: pcg-nystrom's sketch at t = 100 (timed at
@@ -1646,39 +1973,40 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
                                             precision="f32")
     sketch_bound = _bound(N_TRAIN, N_TRAIN, D, RANK)
     rows += [
-        {**mv_row, "case": "pcg-nystrom sketch (t = 100)",
+        {**mv_row, "case": "pcg-nystrom sketch (t = 100)", "path": "baselines pcg-nystrom",
          "launches": nys["launches"]["kernel_matvec"], "shape": [BLOCK, N_TRAIN, D, RANK],
          **_time_case(lambda: mv(xb, x, omega_b),
                       lambda: ref.kernel_matvec(xb, x, omega_b, SIGMA),
                       _bound(BLOCK, N_TRAIN, D, RANK)),
          "sketch_ms": nys["sketch_ms"], "sketch_shape": nys["sketch_shape"],
          "sketch_bound_ms": sketch_bound["bound_ms"], "sketch_bound_by": sketch_bound["bound_by"]},
-        {**blk_row, "case": "rpcholesky pivot column",
+        {**blk_row, "case": "rpcholesky pivot column", "path": "baselines pcg-rpcholesky",
          "launches": by_method["pcg-rpcholesky"]["launches"]["kernel_block"],
          "shape": [N_TRAIN, 1, D],
          **_time_case(lambda: kernel_block_cuda(x, xp, kernel="rbf", sigma=SIGMA,
                                                 precision="f32"),
                       lambda: ref.kernel_block(x, xp, SIGMA), _bound(N_TRAIN, 1, D, None))},
-        {**mv_row, "case": "falkon K(X, X_m) v",
+        {**mv_row, "case": "falkon K(X, X_m) v", "path": "baselines falkon",
          "launches": by_method["falkon"]["launches"]["kernel_matvec"],
          "shape": [N_TRAIN, FALKON_M, D, 1],
          **_time_case(lambda: mv(x, xm, vm), lambda: ref.kernel_matvec(x, xm, vm, SIGMA),
                       _bound(N_TRAIN, FALKON_M, D, 1))},
-        {**mv_row, "case": "falkon K(X_m, X) u",
+        {**mv_row, "case": "falkon K(X_m, X) u", "path": "baselines falkon",
          "launches": by_method["falkon"]["launches"]["kernel_matvec"],
          "shape": [FALKON_M, N_TRAIN, D, 1],
          **_time_case(lambda: mv(xm, x, z), lambda: ref.kernel_matvec(xm, x, z, SIGMA),
                       _bound(FALKON_M, N_TRAIN, D, 1))},
     ]
-    for r in [*rows, *extra]:
+    for r in rows:
         emit({"phase": "time", **r})
         if not r["ok"]:
             fail(f"{r['name']} disagrees with its plain version at shape {r['shape']}")
     return rows
 
 
-def _run_launcher(module: str, *args: str) -> dict:
-    """Run ``python -m module args`` on the card; its last stdout line."""
+def _run_launcher(module: str, *args: str, whole: bool = False) -> dict:
+    """Run ``python -m module args`` on the card; its last stdout line (its
+    whole stdout with ``whole``: krr_serve prints indented JSON)."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run(
         [sys.executable, "-m", module, *args],
@@ -1686,7 +2014,7 @@ def _run_launcher(module: str, *args: str) -> dict:
     )
     if proc.returncode != 0:
         fail(f"{module} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout if whole else proc.stdout.strip().splitlines()[-1])
 
 
 def phase_launch() -> dict:
@@ -1694,7 +2022,8 @@ def phase_launch() -> dict:
 
     OUT_DIR.mkdir(exist_ok=True)
     solve_tel, tune_tel = OUT_DIR / "launch_solve.jsonl", OUT_DIR / "launch_tune.jsonl"
-    for p in (solve_tel, tune_tel):
+    serve_tel, artifact = OUT_DIR / "launch_serve.jsonl", OUT_DIR / "launch_artifact"
+    for p in (solve_tel, tune_tel, serve_tel):
         p.unlink(missing_ok=True)
     report = _run_launcher("repro_torch.launch.krr_solve", "--method", "askotch", "--iters", "50",
                            "--telemetry", str(solve_tel))
@@ -1706,7 +2035,7 @@ def phase_launch() -> dict:
     tune_report = _run_launcher(
         "repro_torch.launch.krr_tune", "--kernels", ",".join(MK_KERNELS),
         "--n-weight-samples", str(M_WEIGHTS), "--n", "4000", "--iters", "100",
-        "--refit-iters", "100", "--telemetry", str(tune_tel))
+        "--refit-iters", "100", "--telemetry", str(tune_tel), "--export-artifact", str(artifact))
     tune_counts = validate_jsonl(str(tune_tel))
     emit({"phase": "launch", "module": "krr_tune", "telemetry": tune_counts,
           "report": {k: v for k, v in tune_report.items() if k not in ("records", "trace")}})
@@ -1717,6 +2046,23 @@ def phase_launch() -> dict:
         fail(f"krr_tune --telemetry wrote {tune_counts}")
     if not math.isfinite(tune_report["refit"]["test_rmse"]):
         fail(f"krr_tune refit test_rmse {tune_report['refit']['test_rmse']}")
+    # the exported artifact through the serving launcher, with Poisson traffic
+    serve = _run_launcher("repro_torch.launch.krr_serve", "--artifact", f"demo={artifact}",
+                          "--requests", "200", "--rate", "500", "--prometheus",
+                          "--telemetry", str(serve_tel), whole=True)
+    serve_counts = validate_jsonl(str(serve_tel))
+    model = serve["stats"]["models"]["demo"]
+    emit({"phase": "launch", "module": "krr_serve", "telemetry": serve_counts,
+          "report": {k: v for k, v in serve.items() if k != "prometheus"}})
+    keys = {"report": (list(serve), SERVE_LAUNCHER_KEYS),
+            "loaded": (list(serve["loaded"]["demo"]), SERVE_LOADED_KEYS),
+            "stats": (list(serve["stats"]), SERVE_STATS_KEYS),
+            "model stats": (list(model), SERVE_MODEL_KEYS)}
+    for what, (got, want) in keys.items():
+        if got != want:
+            fail(f"krr_serve {what} keys {got} != the JAX launcher's {want}")
+    if model["n_requests"] != 200 or not serve_counts.get("span", 0) >= 1:
+        fail(f"krr_serve served {model['n_requests']} of 200 requests, telemetry {serve_counts}")
     return report
 
 
@@ -1739,18 +2085,22 @@ def main() -> int:
     phase_build()
     phase_check()
     phase_check_multi()
+    phase_check_split()
     phase_check_determinism()
     solve_rec, solve_w = phase_solve()
     phase_telemetry(solve_rec)
     tune_rec, tune_result = phase_tune()
-    refit_rec = phase_refit(tune_result.best)
+    refit_rec, refit_w = phase_refit(tune_result.best)
     baseline_recs = phase_baselines()
     phase_estimators(solve_rec, solve_w, tune_result)
-    del solve_w
     phase_sap()
+    serve_recs = phase_serve(solve_w, tune_result.best, refit_w)
+    del solve_w, refit_w
     # each path's launch counts, from its own reset and read
     launches = {"solve": solve_rec["launches"], "tune": tune_rec["launches"],
-                "refit": refit_rec["launches"]}
+                "refit": refit_rec["launches"],
+                **{f"serve {k}": r["launches"] for k, r in zip(
+                    ("taxi", "multikernel", "heads"), serve_recs)}}
     rows = phase_time(launches, tuple(tune_result.best["weights"]),
                       _tune_weight_cols(tune_result), baseline_recs)
     phase_launch()

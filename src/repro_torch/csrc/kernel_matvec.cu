@@ -52,8 +52,10 @@
 // ~235 ms at t = 8 and 16 (PERF.md).
 // The wrapper pads V with zero columns to a multiple of 4 at t > 1, so its
 // rows are copied in 16-byte units.
-// Known limit: a small m (a few prediction queries) gives fewer blocks than
-// the 132 SMs; splitting n across blocks is later work.
+// A small m at t = 1 (a serving bucket of 8 to 4096 queries) splits n
+// across grid.y (sweep_t1.cuh): S ranges of B, an (S, m) partials buffer,
+// and a small kernel that adds each row's S partials in order.  At t > 1 a
+// small m still gives fewer blocks than the 132 SMs.
 //
 // Precision: with bf16 operands the kernel value is rounded to bf16 before
 // its product with V (the TPU kernel's bf16 matmul operand); the product of
@@ -178,13 +180,15 @@ __host__ __device__ constexpr int t1_min_blocks(int kid, int nf, bool slab) {
 }
 
 // out (m) = K(A, B) @ v, t == 1, on the t = 1 sweep over the packed B (bp:
-// P floats a row, n_pad rows).  One special-function operation a pair for
-// rbf and laplacian, two for matern52 (sqrt.approx and ex2).
+// P floats a row, n_pad rows), block (x, y) over rows [y span, +span) of it
+// (one range: span = n_pad; split: `out` is the (S, m) partials).  One
+// special-function operation a pair for rbf and laplacian, two for
+// matern52 (sqrt.approx and ex2).
 template <typename T, int KID, int NF, bool SLAB>
 __global__ void __launch_bounds__(t1::THREADS, t1_min_blocks(KID, NF, SLAB))
 kernel_matvec_t1_kernel(const T* __restrict__ a, const float* __restrict__ bp,
-                        float* __restrict__ out, int64_t m, int64_t n_pad, int d, int P,
-                        float sigma) {
+                        float* __restrict__ out, int64_t m, int64_t n_pad, int64_t span, int d,
+                        int P, float sigma) {
   constexpr int FAM = family_of(KID);
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(16) float t1_smem[];
@@ -192,7 +196,7 @@ kernel_matvec_t1_kernel(const T* __restrict__ a, const float* __restrict__ bp,
   const float m2rs = -2.0f * mc.rbf_scale;
   float o[t1::R] = {};
   t1::sweep<NF, SLAB, FAM != F_L1, FAM == F_L1>(
-      a, bp, m, d, P, 0, n_pad, FAM == F_L2, t1_smem,
+      a, bp, m, d, P, t1::range_begin(span), t1::range_end(span, n_pad), FAM == F_L2, t1_smem,
       [&](float (&acc)[t1::R][t1::J], float (&acc1)[t1::R][t1::J], const float (&a2)[t1::R],
           const float (&b2)[t1::J], const float (&vv)[t1::J]) {
 #pragma unroll
@@ -228,14 +232,17 @@ static cudaError_t launch_t1(const T* a, const T* b, const T* v, float* out, int
   cudaError_t err = t1::launch_pack(b, v, scratch, n, d, norm_scale, s);
   if (err != cudaSuccess) return err;
   const t1::PackShape ps = t1::pack_shape(n, d);
-  const unsigned blocks = (unsigned)((m + t1::TM - 1) / t1::TM);
+  const t1::Split sp = t1::split_of(m, n, d);
+  float* part = scratch + t1::pack_floats(n, d);  // the (S, m) partials of a split
+  float* dst = sp.s > 1 ? part : out;
 #define PK_T1(NF, SLAB)                                                                      \
-  err = t1::launch_sweep(kernel_matvec_t1_kernel<T, KID, NF, SLAB>, blocks,                  \
-                         t1::smem_bytes(NF, SLAB), s, a, (const float*)scratch, out, m,      \
-                         ps.rows, d, ps.stride, sigma)
+  err = t1::launch_sweep(kernel_matvec_t1_kernel<T, KID, NF, SLAB>, t1::sweep_grid(m, sp),   \
+                         t1::smem_bytes(NF, SLAB), s, a, (const float*)scratch, dst, m,      \
+                         ps.rows, sp.span, d, ps.stride, sigma)
   PK_T1_DISPATCH_NF(d, PK_T1)
 #undef PK_T1
-  return err;
+  if (err != cudaSuccess || sp.s == 1) return err;
+  return t1::launch_reduce(part, out, m, sp.s, false, s);
 }
 
 // The kernel set of kernel_matvec's column path: kernel KID alone,
@@ -309,7 +316,7 @@ static cudaError_t launch_cols(const float* a, const float* b, const float* v, f
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // d, t >= 1.  t == 1: bf16 != 0 reads A, B and V as __nv_bfloat16, else as
-// float, and needs `scratch`: sweep_t1_scratch_floats(n, d) floats of
+// float, and needs `scratch`: sweep_t1_scratch_floats(m, n, d) floats of
 // device memory.  t > 1: A, B and V are float (bf16 != 0: holding
 // bf16-rounded values, and K is rounded to bf16 before its product with V);
 // `scratch` is unused.

@@ -98,9 +98,10 @@
 // sum of f32 values in f32.
 //
 // Deterministic: no atomics; the t = 1 sweep adds its 8 warps' row sums in
-// warp order, the column path and the block need no reduction across
-// threads (a thread owns whole sums and whole output values), and group
-// launches are ordered on the stream.
+// warp order (split over n at m <= 4096 rows, a serving bucket's, then a
+// row's S range sums in range order, S set by n alone), the column path
+// and the block need no reduction across threads (a thread owns whole sums
+// and whole output values), and group launches are ordered on the stream.
 #include <algorithm>
 
 #include "kernel_common.cuh"
@@ -209,8 +210,8 @@ template <typename T, bool DOTACC, bool L1ACC, int NF, bool SLAB>
 __global__ void __launch_bounds__(t1::THREADS, 2)
 kernel_matvec_multi_kernel(const T* __restrict__ a, const float* __restrict__ bp,
                            const float* __restrict__ w, float* __restrict__ out, int64_t m,
-                           int64_t n_pad, int d, int P, MultiSpec spec, bool l2_pre,
-                           bool accumulate) {
+                           int64_t n_pad, int64_t span, int d, int P, MultiSpec spec,
+                           bool l2_pre, bool accumulate) {
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(16) float t1_smem[];
   __shared__ MultiTable tab;
@@ -225,7 +226,7 @@ kernel_matvec_multi_kernel(const T* __restrict__ a, const float* __restrict__ bp
 
   float o[t1::R] = {};
   t1::sweep<NF, SLAB, DOTACC, L1ACC>(
-      a, bp, m, d, P, 0, n_pad, l2_pre, t1_smem,
+      a, bp, m, d, P, t1::range_begin(span), t1::range_end(span, n_pad), l2_pre, t1_smem,
       [&](float (&acc)[t1::R][t1::J], float (&acc1)[t1::R][t1::J], const float (&a2)[t1::R],
           const float (&b2)[t1::J], const float (&vv)[t1::J]) {
         if (DOTACC && l2_pre)
@@ -621,20 +622,24 @@ static cudaError_t launch_multi_t1(const T* a, const T* b, const T* v, const flo
   cudaError_t err = t1::launch_pack(b, v, scratch, n, d, 1.0f, s);
   if (err != cudaSuccess) return err;
   const t1::PackShape ps = t1::pack_shape(n, d);
-  const unsigned blocks = (unsigned)((m + t1::TM - 1) / t1::TM);
+  const t1::Split sp = t1::split_of(m, n, d);
+  float* part = scratch + t1::pack_floats(n, d);  // the (S, m) partials of a split
+  float* dst = sp.s > 1 ? part : out;
 #define PK_T1(NF, SLAB)                                                                      \
-  err = t1::launch_sweep(kernel_matvec_multi_kernel<T, DA, LA, NF, SLAB>, blocks,            \
-                         t1::smem_bytes(NF, SLAB), s, a, (const float*)scratch, w, out, m,   \
-                         ps.rows, d, ps.stride, spec, l2_pre, accumulate)
+  err = t1::launch_sweep(kernel_matvec_multi_kernel<T, DA, LA, NF, SLAB>,                    \
+                         t1::sweep_grid(m, sp), t1::smem_bytes(NF, SLAB), s, a,              \
+                         (const float*)scratch, w, dst, m, ps.rows, sp.span, d, ps.stride,   \
+                         spec, l2_pre, accumulate)
   PK_T1_DISPATCH_NF(d, PK_T1)
 #undef PK_T1
-  return err;
+  if (err != cudaSuccess || sp.s == 1) return err;
+  return t1::launch_reduce(part, out, m, sp.s, accumulate, s);
 }
 
 // t == 1: w is a device (q, 1) f32 column, or null to use the host
 // `weights` (q,).  accumulate != 0 adds to `out` instead of overwriting it.
-// `scratch`: sweep_t1_scratch_floats(n, d) floats of device memory (B
-// packed with its norms and v).
+// `scratch`: sweep_t1_scratch_floats(m, n, d) floats of device memory (B
+// packed with its norms and v, then the partials of a launch split over n).
 extern "C" int kernel_matvec_multi_launch(const void* a, const void* b, const void* v,
                                           const float* w, void* out, long long m, long long n,
                                           int d, int t, int q, const int* kids,

@@ -36,10 +36,24 @@
 // The sweep computes, per group, the family accumulators a thread's 16 pairs
 // need (sum a.b: l2 / dot / cos; sum |a - b|: l1) and hands them with the
 // rows' norms and the B rows' norms and v to the caller's epilogue, which
-// applies the maps and accumulates into the thread's two row sums.  The
-// range [j_begin, j_end) of packed rows (multiples of the staged tile) lets
-// a later split over n give each block a part of B.
+// applies the maps and accumulates into the thread's two row sums.
+//
+// The split over n.  A block holds 64 rows of A, so at a few rows (a
+// serving bucket of 8 to 4096 queries against n = 10^6 training rows) the
+// grid of ceil(m / 64) blocks leaves most of the 132 SMs idle: m = 64 ran
+// on one SM in 6.5 ms against a 0.024 ms bound.  Up to SPLIT_M rows the
+// launch therefore cuts the packed rows into S ranges of whole staged
+// tiles (grid.y = S): each block sweeps its range [j_begin, j_end) and
+// writes its rows' sums to row blockIdx.y of an (S, m) f32 partials buffer
+// (after the packed B in the scratch), and reduce_splits adds each row's S
+// partials in split order.  No atomics.  S depends on n and the feature
+// route only (split_of), never on m, so a row's result is bitwise the same
+// whatever rows travel with it, in every bucket up to SPLIT_M.  Above
+// SPLIT_M (the solve's G_B, the residual pass, a 10^4-row prediction) the
+// row blocks fill the card and the launch is one range, as before.
 #pragma once
+
+#include <algorithm>
 
 #include "kernel_common.cuh"
 
@@ -56,6 +70,9 @@ constexpr int DCAP = 16;      // feature widths up to DCAP keep A in registers
 constexpr int DS = 16;        // slab width above DCAP
 constexpr int TN_REG = 256;   // B rows a staged tile (d <= DCAP)
 constexpr int TN_SLAB = 64;   // B rows a staged slab unit (d > DCAP)
+constexpr int64_t SPLIT_M = 4096;  // rows of A up to which n is split
+constexpr int SPLIT_MAX = 264;     // ranges at most: two blocks on each of 132 SMs at m <= 64
+constexpr int SPLIT_MIN_TILES = 4; // staged tiles a range at least
 
 // Feature slots a launch keeps in registers (d <= DCAP): 9, the taxi data's
 // d, or 16; the slots past d are zero.
@@ -76,6 +93,29 @@ inline PackShape pack_shape(int64_t n, int d) {
 inline int64_t pack_floats(int64_t n, int d) {
   const PackShape s = pack_shape(n, d);
   return s.rows * s.stride;
+}
+// The ranges of packed rows a launch of m rows sweeps: S of `span` rows
+// (whole staged tiles; the last may be short).  S follows n and the
+// feature route (the staged tile's rows) only, so every m up to SPLIT_M
+// splits B alike; above SPLIT_M, or with too few tiles, one range.
+struct Split {
+  int s;
+  int64_t span;
+};
+inline Split split_of(int64_t m, int64_t n, int d) {
+  const PackShape ps = pack_shape(n, d);
+  const int tn = d <= DCAP ? TN_REG : TN_SLAB;
+  const int64_t tiles = ps.rows / tn;
+  if (m > SPLIT_M || tiles < 2 * SPLIT_MIN_TILES) return {1, ps.rows};
+  const int64_t s0 = std::min<int64_t>(SPLIT_MAX, tiles / SPLIT_MIN_TILES);
+  const int64_t per = (tiles + s0 - 1) / s0;  // tiles a range
+  return {(int)((tiles + per - 1) / per), per * tn};
+}
+// Floats of a t = 1 launch's scratch: the packed B, then the (S, m)
+// partials when the launch splits n.
+inline int64_t scratch_floats(int64_t m, int64_t n, int d) {
+  const Split sp = split_of(m, n, d);
+  return pack_floats(n, d) + (sp.s > 1 ? (int64_t)sp.s * m : 0);
 }
 // Dynamic shared memory of a sweep: the ring (ring_floats), then the warps'
 // row sums (WARPS x TM floats).
@@ -281,10 +321,23 @@ __device__ __forceinline__ void sweep(const T* __restrict__ a, const float* __re
   }
 }
 
+// The block's range of packed rows: [blockIdx.y span, +span) cut at n_pad.
+__device__ __forceinline__ int64_t range_begin(int64_t span) { return (int64_t)blockIdx.y * span; }
+__device__ __forceinline__ int64_t range_end(int64_t span, int64_t n_pad) {
+  const int64_t end = range_begin(span) + span;
+  return end < n_pad ? end : n_pad;
+}
+
 // out[row] (+)= the sum of the 8 warps' partial sums o of the block's rows,
-// added in warp order; `red` is WARPS x TM floats of shared memory.
+// added in warp order; `red` is WARPS x TM floats of shared memory.  A
+// launch split over n (gridDim.y > 1) writes row blockIdx.y of the (S, m)
+// partials at `out` instead, never accumulating there.
 __device__ __forceinline__ void write_rows(const float (&o)[R], float* red, float* __restrict__ out,
                                            int64_t m, bool accumulate) {
+  if (gridDim.y > 1) {
+    out += (int64_t)blockIdx.y * m;
+    accumulate = false;
+  }
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 #pragma unroll
   for (int r = 0; r < R; ++r) red[warp * TM + lane + 32 * r] = o[r];
@@ -296,6 +349,16 @@ __device__ __forceinline__ void write_rows(const float (&o)[R], float* red, floa
     const int64_t row = (int64_t)blockIdx.x * TM + tid;
     if (row < m) out[row] = accumulate ? out[row] + s : s;
   }
+}
+
+// out[row] (+)= the sum of its S partials (part: (S, m)), in split order.
+__global__ void reduce_splits(const float* __restrict__ part, float* __restrict__ out, int64_t m,
+                              int s, bool accumulate) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= m) return;
+  float sum = part[row];
+  for (int k = 1; k < s; ++k) sum += part[(int64_t)k * m + row];
+  out[row] = accumulate ? out[row] + sum : sum;
 }
 
 // Pack B and v into `scratch` (pack_floats(n, d) floats) on `stream`, the
@@ -315,27 +378,47 @@ inline cudaError_t launch_pack(const T* b, const T* v, float* scratch, int64_t n
 }  // namespace t1
 }  // namespace pk
 
-// Floats of the scratch a t = 1 launch needs for B of n rows and d features
-// (the packed B: 48 MB at n = 10^6, d = 9); each library that includes this
+// Floats of the scratch a t = 1 launch of m rows needs for B of n rows and
+// d features (the packed B: 48 MB at n = 10^6, d = 9; and the (S, m)
+// partials of a launch split over n); each library that includes this
 // header exports it.
-extern "C" long long sweep_t1_scratch_floats(long long n, int d) {
-  return n < 0 || d < 1 ? 0 : (long long)pk::t1::pack_floats(n, d);
+extern "C" long long sweep_t1_scratch_floats(long long m, long long n, int d) {
+  return m < 0 || n < 0 || d < 1 ? 0 : (long long)pk::t1::scratch_floats(m, n, d);
+}
+// The ranges S a t = 1 launch of m rows splits B of n rows into (1: no split).
+extern "C" int sweep_t1_splits(long long m, long long n, int d) {
+  return m < 0 || n < 0 || d < 1 ? 1 : pk::t1::split_of(m, n, d).s;
 }
 
 namespace pk {
 namespace t1 {
 
-// Launch a sweep kernel with `smem` bytes of dynamic shared memory, opting
-// in first above the 48 KB a block gets by default.
+// Launch a sweep kernel over `grid` ((m row blocks, S ranges)) with `smem`
+// bytes of dynamic shared memory, opting in first above the 48 KB a block
+// gets by default.
 template <typename Kernel, typename... Args>
-inline cudaError_t launch_sweep(Kernel kernel, unsigned blocks, size_t smem, cudaStream_t stream,
+inline cudaError_t launch_sweep(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
                                 Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<blocks, THREADS, smem, stream>>>(args...);
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// The grid of a sweep of m rows split as `sp`.
+inline dim3 sweep_grid(int64_t m, const Split& sp) {
+  return dim3((unsigned)((m + TM - 1) / TM), (unsigned)sp.s);
+}
+
+// After a split sweep: out (+)= the partials' sums (part: the scratch past
+// the packed B).
+inline cudaError_t launch_reduce(const float* part, float* out, int64_t m, int s,
+                                 bool accumulate, cudaStream_t stream) {
+  constexpr int RT = 256;
+  reduce_splits<<<(unsigned)((m + RT - 1) / RT), RT, 0, stream>>>(part, out, m, s, accumulate);
   return cudaGetLastError();
 }
 

@@ -13,9 +13,8 @@ import ctypes
 
 import torch
 
-from repro_torch.core.kernels import KERNEL_NAMES
 from repro_torch.kernels import _build
-from repro_torch.kernels.kernel_matvec import check_operands
+from repro_torch.kernels.kernel_matvec import check_operands, kernel_names
 
 _SIGNATURE = (
     [ctypes.c_void_p] * 3
@@ -53,7 +52,7 @@ def kernel_block_cuda(
     with torch.cuda.device(a.device):  # the launch goes to the runtime's current device
         err = _fn()(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, d, float(sigma),
-            KERNEL_NAMES.index(kernel), int(dt == torch.bfloat16),
+            kernel_names().index(kernel), int(dt == torch.bfloat16),
             torch.cuda.current_stream(a.device).cuda_stream,
         )
     if err != 0:

@@ -6,7 +6,10 @@ FMAs plus one kernel-map evaluation per pair, and t FMAs a pair for t
 columns); its source note says how the design keeps every pair in registers
 and shared memory.  The route is chosen by t alone: t = 1 runs on the t = 1
 sweep (``csrc/sweep_t1.cuh``), 2 <= t <= 8 on one 8-column loop, t > 8 on the
-column path (``csrc/sweep_cols.cuh``).  Its plain version is
+column path (``csrc/sweep_cols.cuh``).  At t = 1 and up to 4096 rows of A
+(a serving bucket) the sweep splits B over grid.y, so a few rows still fill
+the card; the split is set by n alone, so a row's result is bitwise the
+same whatever rows travel with it.  Its plain version is
 ``repro_torch.kernels.ref.kernel_matvec``.
 
 The library is built from the sources and loaded at the first call, never
@@ -19,7 +22,6 @@ import ctypes
 
 import torch
 
-from repro_torch.core.kernels import KERNEL_NAMES
 from repro_torch.kernels import _build
 
 _SIGNATURE = (
@@ -27,6 +29,16 @@ _SIGNATURE = (
     + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 )
+
+
+def kernel_names() -> tuple[str, ...]:
+    """The kernel zoo's names in the CUDA sources' id order
+    (``repro_torch.core.kernels.KERNEL_NAMES``), imported at call time:
+    ``repro_torch.core`` imports the operators, which import these
+    wrappers, so a wrapper module imported first must not import it."""
+    from repro_torch.core.kernels import KERNEL_NAMES
+
+    return KERNEL_NAMES
 
 
 def _fn():
@@ -37,13 +49,25 @@ def _fn():
     return fn
 
 
-def t1_scratch(lib: ctypes.CDLL, n: int, d: int, device) -> torch.Tensor:
-    """The f32 scratch a t = 1 launch of ``lib`` packs B into (its size from
-    the library's ``sweep_t1_scratch_floats(n, d)``)."""
+def t1_scratch(lib: ctypes.CDLL, m: int, n: int, d: int, device) -> torch.Tensor:
+    """The f32 scratch of a t = 1 launch of ``lib`` over m rows: B packed
+    with its norms and v, then, where the launch splits n (m <= 4096), the
+    (S, m) partial row sums (its size from the library's
+    ``sweep_t1_scratch_floats(m, n, d)``)."""
     size = lib.sweep_t1_scratch_floats
-    size.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    size.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
     size.restype = ctypes.c_longlong
-    return torch.empty((size(n, d),), dtype=torch.float32, device=device)
+    return torch.empty((size(m, n, d),), dtype=torch.float32, device=device)
+
+
+def t1_splits(lib: ctypes.CDLL, m: int, n: int, d: int) -> int:
+    """The ranges S a t = 1 launch of ``lib`` over m rows splits B (n rows,
+    d features) into: 1 above 4096 rows or for a short B, else a number
+    set by n and the feature route alone (``sweep_t1_splits``)."""
+    fn = lib.sweep_t1_splits
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(m, n, d)
 
 
 def check_operands(*xs: torch.Tensor) -> None:
@@ -74,11 +98,12 @@ def kernel_matvec_cuda(
     The operands are cast to the policy's type (bf16 for ``"bf16"``, f32
     otherwise) and made contiguous before the launch.  t = 1 launches the
     t = 1 sweep (B packed with its norms and v into a scratch buffer
-    first).  t > 1 reads f32 operands (bf16 values widen exactly) with V
-    padded by zero columns to a multiple of 4, so its rows are copied in
-    16-byte units; up to 8 columns run on one 8-column loop, more on the
-    column path, which forms each pair's kernel value once for up to 160
-    columns.
+    first; up to 4096 rows of A, B split into ranges over grid.y, each
+    row's range sums added in a fixed order by a second kernel).  t > 1
+    reads f32 operands (bf16 values widen exactly) with V padded by zero
+    columns to a multiple of 4, so its rows are copied in 16-byte units; up
+    to 8 columns run on one 8-column loop, more on the column path, which
+    forms each pair's kernel value once for up to 160 columns.
     """
     check_operands(a, b, v)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1] or a.shape[1] < 1:
@@ -100,11 +125,11 @@ def kernel_matvec_cuda(
         return out[:, :t] if tp > t else out
     fn = _fn()
     # t = 1 packs B with its norms and v into a scratch buffer first
-    scratch = t1_scratch(_build.load("kernel_matvec"), n, d, a.device) if t == 1 else None
+    scratch = t1_scratch(_build.load("kernel_matvec"), m, n, d, a.device) if t == 1 else None
     with torch.cuda.device(a.device):  # the launch goes to the runtime's current device
         err = fn(
             a.data_ptr(), b.data_ptr(), v.data_ptr(), out.data_ptr(), m, n, d, tp,
-            float(sigma), KERNEL_NAMES.index(kernel), int(dt == torch.bfloat16),
+            float(sigma), kernel_names().index(kernel), int(dt == torch.bfloat16),
             None if scratch is None or scratch.numel() == 0 else scratch.data_ptr(),
             torch.cuda.current_stream(a.device).cuda_stream,
         )

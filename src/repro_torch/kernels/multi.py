@@ -21,9 +21,8 @@ import ctypes
 
 import torch
 
-from repro_torch.core.kernels import KERNEL_NAMES
 from repro_torch.kernels import _build
-from repro_torch.kernels.kernel_matvec import check_operands, t1_scratch
+from repro_torch.kernels.kernel_matvec import check_operands, kernel_names, t1_scratch
 
 #: kernels per launch of the weighted matvec and block (``QMAX`` in the source)
 QMAX = 8
@@ -50,7 +49,7 @@ def _fn(name: str, restype=ctypes.c_int):
 def _host_table(kernels, sigmas, weights=None):
     """ctypes arrays of the kernel ids, bandwidths (and static weights)."""
     q = len(kernels)
-    ids = (ctypes.c_int * q)(*(KERNEL_NAMES.index(k) for k in kernels))
+    ids = (ctypes.c_int * q)(*(kernel_names().index(k) for k in kernels))
     sig = (ctypes.c_float * q)(*(float(s) for s in sigmas))
     w = None if weights is None else (ctypes.c_float * q)(*(float(x) for x in weights))
     return ids, sig, w
@@ -63,9 +62,9 @@ def _check_spec(kernels, sigmas, weights=None) -> int:
             f"need q >= 1 kernels with one sigma (and weight) each; got {len(kernels)} "
             f"kernels, {len(sigmas)} sigmas" + ("" if weights is None else f", {len(weights)} weights")
         )
-    unknown = [k for k in kernels if k not in KERNEL_NAMES]
+    unknown = [k for k in kernels if k not in kernel_names()]
     if unknown:
-        raise ValueError(f"unknown kernel(s) {unknown}; available: {KERNEL_NAMES}")
+        raise ValueError(f"unknown kernel(s) {unknown}; available: {kernel_names()}")
     return q
 
 
@@ -135,7 +134,7 @@ def kernel_matvec_multi_cuda(
     # t = 1 packs B with its norms and v into a scratch buffer first
     extra = ()
     if t == 1:
-        scratch = t1_scratch(_build.load("kernel_multi"), n, d, a.device)
+        scratch = t1_scratch(_build.load("kernel_multi"), m, n, d, a.device)
         extra = (scratch.data_ptr() if scratch.numel() else None,)
     with torch.cuda.device(a.device):  # the launch goes to the runtime's current device
         stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -18,15 +18,18 @@ grows the weight axis.  After the sweep the best config is refit on the
 full training set with ``--method`` (default askotch, warm-started from the
 winner's fold-averaged CV solution) and scored on held-out test data;
 ``--export PATH`` writes the best-config JSON with the per-candidate
-``trace``; ``--telemetry PATH`` writes the search's and the refit's spans,
-trace events and metrics as JSONL (``repro_torch.obs``; summarize it with
-``python -m repro_torch.obs.report PATH``).  The JSON line has the JAX
+``trace``; ``--export-artifact DIR`` writes a full serving artifact (the
+best config, the training rows and the refit weights: ``config.json`` +
+``weights.npz``) that ``repro_torch.launch.krr_serve``, or either
+package's ``ServingEngine.load_model``, loads; ``--telemetry PATH`` writes
+the search's and the refit's spans, trace events and metrics as JSONL
+(``repro_torch.obs``; summarize it with ``python -m repro_torch.obs.report
+PATH``).  The JSON line has the JAX
 launcher's keys in its order.
 
 ``--device`` (default ``cuda``) picks where the data and every kernel sweep
 live; ``cuda`` without a card is an error.  ``--mesh`` (distributed slice)
-and ``--export-artifact`` (serving slice) are accepted as flags and raise
-``NotImplementedError``.
+is accepted as a flag and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -100,8 +103,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--export", default=None,
                     help="write the best-config JSON here (serving input)")
     ap.add_argument("--export-artifact", default=None,
-                    help="write a full serving artifact directory here "
-                         "(not yet ported: serving slice)")
+                    help="also write a full serving artifact directory here "
+                         "(config + training rows + refit weights)")
     ap.add_argument("--telemetry", default=None, metavar="PATH",
                     help="write telemetry (spans + tune traces + metrics) "
                          "as JSONL to PATH (repro_torch.obs)")
@@ -113,9 +116,6 @@ def main(argv: list[str] | None = None) -> dict:
     if args.mesh is not None:
         raise NotImplementedError(
             "--mesh is not yet ported to repro_torch (distributed slice)")
-    if args.export_artifact:
-        raise NotImplementedError(
-            "--export-artifact is not yet ported to repro_torch (serving slice)")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -204,6 +204,13 @@ def main(argv: list[str] | None = None) -> dict:
             "test_mae": float(m.mae),
             "test_acc": float(m.accuracy),
         }
+        if args.export_artifact:
+            from repro_torch.serving.engine import save_model_artifact
+
+            # tune -> refit -> artifact: config + training rows + refit
+            # weights as files on disk, loadable by either package's engine
+            save_model_artifact(args.export_artifact, result.best, x_tr, out.w)
+            report["exported_artifact"] = args.export_artifact
     report["seconds"] = round(time.perf_counter() - t0, 2)
     if tel is not None:
         tel.close()  # flush metric events after all spans close

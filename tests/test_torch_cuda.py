@@ -2,7 +2,9 @@
 plain PyTorch versions, one ASkotch step on the card against the same step
 on the CPU, a multi-kernel operator whose every primitive launches the
 multi-kernel CUDA kernels, the baselines, the estimators and the SAP steps
-on the card against the CPU, and a telemetry-enabled solve.
+on the card against the CPU, a telemetry-enabled solve, the t = 1 sweep
+split over n (its edges, and a row bitwise the same in every serving
+bucket) and the serving engine on the card against the engine on the CPU.
 
 This file imports neither JAX nor the JAX package nor scikit-learn, so it
 runs on a machine with a card and none of them:
@@ -592,3 +594,135 @@ def test_cuda_sap_step_matches_cpu(cuda_device, rng, name):
         out[str(dev)] = state.w.cpu().numpy()
     want = out["cpu"]
     assert np.linalg.norm(out["cuda"] - want) / np.linalg.norm(want) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the t = 1 sweep split over n (m <= 4096 rows: the serving buckets) and the
+# serving engine on the card
+# ---------------------------------------------------------------------------
+
+#: rows of A the split route is held at: one row, a bucket of 8, a block's
+#: 64 rows and one either side, and a 16-block bucket
+SPLIT_M = (1, 8, 63, 64, 65, 1024)
+
+
+def _split_ns(d):
+    """n below one staged tile (no split), at a multiple of it (40 tiles)
+    and one either side: 256 rows a tile up to d = 16, 64 above."""
+    tile = 256 if d <= 16 else 64
+    return {"below": tile - 1, "multiple": 40 * tile, "minus1": 40 * tile - 1,
+            "plus1": 40 * tile + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [9, 16, 17, 37])
+@pytest.mark.parametrize("edge", ["below", "multiple", "minus1", "plus1"])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_split_sweep_edges_match_plain(cuda_device, rng, d, edge, precision):
+    """kernel_matvec (every kernel) and the weighted matvec (every
+    combination of MULTI_CASES) at t = 1 on the split route's edges of m
+    and n, against the plain versions."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kernel_matvec import t1_splits
+
+    n = _split_ns(d)[edge]
+    splits = t1_splits(_build.load("kernel_matvec"), 8, n, d)
+    assert (splits > 1) == (edge != "below")
+    b = _t((rng.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)).to(cuda_device)
+    v = _t(rng.standard_normal((n,)).astype(np.float32)).to(cuda_device)
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    for m in SPLIT_M:
+        a = _t((rng.standard_normal((m, d)) / np.sqrt(d)).astype(np.float32)).to(cuda_device)
+        for kern in KERNEL_NAMES:
+            got = kernel_matvec_cuda(a, b, v, kernel=kern, sigma=1.3, precision=precision)
+            want = ops.ref.kernel_matvec(a, b, v, 1.3, kernel=kern,
+                                         precision=precision).cpu().numpy()
+            np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+        for kernels, sigmas in MULTI_CASES.values():
+            w = tuple(float(x) for x in rng.dirichlet(np.ones(len(kernels))))
+            got = kernel_matvec_multi_cuda(a, b, v, w, kernels=kernels, sigmas=sigmas,
+                                           precision=precision)
+            want = ops.ref.kernel_matvec_multi(a, b, v, sigmas,
+                                               torch.tensor(w, device=cuda_device),
+                                               kernels=kernels, precision=precision)
+            want = want.cpu().numpy()
+            np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_split_rows_bitwise_the_same_in_every_bucket(cuda_device, rng, precision):
+    """The same 8 rows in buckets of 8, 64 and 1024 rows, at other
+    positions and with other rows beside them, score bitwise the same on
+    both t = 1 kernels: the split is set by n alone up to 4096 rows."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kernel_matvec import t1_splits
+
+    n, d = 100_000, 9
+    lib = _build.load("kernel_matvec")
+    assert t1_splits(lib, 1, n, d) == t1_splits(lib, 4096, n, d) > 1
+    assert t1_splits(lib, 4097, n, d) == 1
+    b = _t(rng.standard_normal((n, d)).astype(np.float32) / 3).to(cuda_device)
+    v = _t(rng.standard_normal((n,)).astype(np.float32)).to(cuda_device)
+    rows = _t(rng.standard_normal((8, d)).astype(np.float32) / 3).to(cuda_device)
+    kernels, sigmas = MULTI_CASES["l2+l1"]
+    fns = (lambda a: kernel_matvec_cuda(a, b, v, kernel="rbf", sigma=1.0, precision=precision),
+           lambda a: kernel_matvec_multi_cuda(a, b, v, (0.5, 0.2, 0.3), kernels=kernels,
+                                              sigmas=sigmas, precision=precision))
+    for fn in fns:
+        base = fn(rows)
+        for bucket, at in ((64, 37), (1024, 1000), (1024, 0)):
+            a = _t(rng.standard_normal((bucket, d)).astype(np.float32) / 3).to(cuda_device)
+            a[at:at + 8] = rows
+            assert torch.equal(fn(a)[at:at + 8], base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [{"kernel": "rbf", "sigma": 1.5},
+                                 {"kernel": ["rbf", "laplacian", "matern52"], "sigma": 1.5,
+                                  "weights": [0.5, 0.2, 0.3]}], ids=["rbf", "multi"])
+@pytest.mark.parametrize("heads", [1, 3])
+def test_cuda_engine_matches_cpu_engine(cuda_device, rng, cfg, heads):
+    """A model of 2000 rows served by the engine on the card against the
+    engine on the CPU (within the f32 tolerance), threaded clients bitwise
+    the card's sequential closure, and one kernel launch a bucket pass."""
+    import threading
+
+    from repro_torch.serving.engine import ServingEngine, bucket_sizes
+    from repro_torch.serving.krr_serve import make_krr_predict_fn_from_config
+
+    x = rng.standard_normal((2000, 6)).astype(np.float32) / 2
+    w = rng.standard_normal((2000, heads)).astype(np.float32)
+    w = w[:, 0].copy() if heads == 1 else w
+    queries = [rng.standard_normal((int(rng.integers(1, 40)), 6)).astype(np.float32)
+               for _ in range(24)]
+    wrapper = kernel_matvec_cuda if isinstance(cfg["kernel"], str) else kernel_matvec_multi_cuda
+    with ServingEngine(max_batch=64, max_wait_ms=2.0) as eng, \
+            ServingEngine(max_batch=64, max_wait_ms=2.0, device="cpu") as cpu:
+        before = wrapper.launches
+        eng.register("m", cfg, x, w)
+        assert wrapper.launches - before == len(bucket_sizes(64))
+        cpu.register("m", cfg, x, w)
+        predict = make_krr_predict_fn_from_config(cfg, x, w, max_batch=64)
+        expected = [predict(q).cpu().numpy() for q in queries]
+        results = [None] * len(queries)
+
+        def client(lo, hi):
+            for i in range(lo, hi):
+                results[i] = eng.predict("m", queries[i])
+
+        eng.reset_stats()
+        before = wrapper.launches
+        threads = [threading.Thread(target=client, args=(j * 6, (j + 1) * 6)) for j in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        eng.drain()
+        runs = sum(o["runs"] for o in eng.stats("m")["occupancy"].values())
+        assert wrapper.launches - before == runs
+        for q, got, want in zip(queries, results, expected):
+            np.testing.assert_array_equal(got, want)
+            ref = cpu.predict("m", q)
+            np.testing.assert_allclose(got, ref, **_tol(ref, *F32_TOL))

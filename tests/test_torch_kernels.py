@@ -184,3 +184,29 @@ def test_build_needs_nvcc_and_sources_only(monkeypatch, tmp_path):
             _build.build([name])
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("kernel_multi")  # the multi-kernel wrappers' first call builds it
+
+
+def test_every_kernel_module_imports_first():
+    """Each CUDA wrapper module (and ``ops``, and the serving modules) can
+    be the first ``repro_torch`` module a process imports: the wrappers
+    must not import ``repro_torch.core``, whose package imports the
+    operators, which import the wrappers (a tool that imported
+    ``kernel_block`` first failed on this cycle)."""
+    import pathlib
+    import subprocess
+    import sys
+
+    mods = ["repro_torch.kernels.kernel_block", "repro_torch.kernels.kernel_matvec",
+            "repro_torch.kernels.multi", "repro_torch.kernels.ops",
+            "repro_torch.serving.engine", "repro_torch.launch.krr_serve"]
+    code = (
+        "import importlib, sys, torch\n"
+        f"for m in {mods!r}:\n"
+        "    for k in [k for k in sys.modules if k.startswith('repro_torch')]:\n"
+        "        del sys.modules[k]\n"
+        "    importlib.import_module(m)\n"
+    )
+    src = pathlib.Path(__file__).resolve().parent.parent / "src"
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, env={**__import__("os").environ, "PYTHONPATH": str(src)})
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -5,6 +5,7 @@
     PYTHONPATH=src python3 tools/profile_torch_step.py --kernels rbf,laplacian,matern52 \\
         --weights 0.665,0.021,0.314
     PYTHONPATH=src python3 tools/profile_torch_step.py --path tune --n 20000 --steps 5
+    PYTHONPATH=src python3 tools/profile_torch_step.py --path serve --block 64 --steps 50
 
 ``--path askotch`` (default): the taxi configuration of ``chip_smoke.py``
 (d = 9, sigma = 1, lam_unscaled = 2e-7, b = 50,000, r = 100, f32) with
@@ -20,6 +21,13 @@ iterations, then a group of ``--steps`` iterations (tol 0) under the
 profiler.  The per-step wall time comes from the CG history (each iteration
 ends in a host read of the column norms), the sketch and the scoring sweep
 stay out of it.
+
+``--path serve``: one serving bucket pass at a time of the taxi model
+(``--kernels`` as for askotch, weights from seed 0) through
+``repro_torch.serving.krr_serve.make_krr_predict_fn``: ``--block`` host
+query rows (default 64) padded to their bucket, copied to the card, one
+kernel launch (at t = 1 split over n: pack, sweep, reduce), the scores
+copied back; ``--steps`` passes under the profiler, after a warm-up pass.
 
 Prints one JSON line per device operation group (top 15 by device time, per
 step) and a summary line with the host wall time per step and the device
@@ -94,12 +102,32 @@ def _tune_steps(args, problem):
     return run, walls
 
 
+def _serve_steps(args, problem):
+    from repro_torch.serving.krr_serve import make_krr_predict_fn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn((problem.n,), generator=gen, device="cuda")
+    predict = make_krr_predict_fn(problem.op, w, max_batch=1024)
+    xq = problem.x[:args.block].cpu().numpy()  # the queries arrive on the host
+    predict(xq).cpu()
+    walls = []
+
+    def run():
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            predict(xq).cpu()  # the copy back waits for the device
+            walls.append(time.perf_counter() - t0)
+
+    return run, walls
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", default="askotch", choices=["askotch", "tune"])
+    ap.add_argument("--path", default="askotch", choices=["askotch", "tune", "serve"])
     ap.add_argument("--n", type=int, default=None,
                     help="rows (default 10^6 for askotch, 20,000 for tune)")
-    ap.add_argument("--block", type=int, default=50_000)
+    ap.add_argument("--block", type=int, default=None,
+                    help="ASkotch block size (default 50,000) or serve's query rows (64)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--kernels", default=None,
                     help="comma list of kernel names (default rbf; rbf,laplacian,matern52 for tune)")
@@ -110,14 +138,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    default_kernels = "rbf" if args.path == "askotch" else "rbf,laplacian,matern52"
+    if args.block is None:
+        args.block = 64 if args.path == "serve" else 50_000
+    default_kernels = "rbf,laplacian,matern52" if args.path == "tune" else "rbf"
     kernels = tuple((args.kernels or default_kernels).split(","))
-    n = args.n or (1_000_000 if args.path == "askotch" else 20_000)
+    n = args.n or (20_000 if args.path == "tune" else 1_000_000)
     x, y = synthetic.taxi_like(0, n, 9, device="cuda")
     weights = None if args.weights is None else tuple(float(w) for w in args.weights.split(","))
     problem = KRRProblem(x=x, y=y, kernel=kernels[0] if len(kernels) == 1 else kernels,
                          weights=weights, sigma=1.0, lam_unscaled=2e-7)
-    run, walls = (_askotch_steps if args.path == "askotch" else _tune_steps)(args, problem)
+    run, walls = {"askotch": _askotch_steps, "tune": _tune_steps,
+                  "serve": _serve_steps}[args.path](args, problem)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
@@ -141,7 +172,7 @@ def main() -> None:
         "wall_ms_per_step": [1e3 * w for w in walls],
         "wall_ms_per_step_median": 1e3 * statistics.median(walls),
         "device_ms_per_step": device_ms / args.steps,
-        "idle_share": (1.0 - (device_ms / 1e3) / sum(walls)) if args.path == "askotch" else None,
+        "idle_share": (1.0 - (device_ms / 1e3) / sum(walls)) if args.path != "tune" else None,
         "card": smi,
     }))
 

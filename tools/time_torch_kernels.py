@@ -31,8 +31,14 @@ against rbf's a.b) and a map (matern52 over rbf).  ``kernel_matvec_cols``
 times ``kernel_matvec`` at t > 1 (its column path) on the solve's G_B
 operands (50,000 x 10^6) with t = 2, 10 (a one-vs-all G_B) and 100
 (pcg-nystrom's sketch width), each beside its bound (``chip_smoke._bound``);
-``--quick`` keeps these rows and ``--matvec-t`` sets the widths.  ``--digests`` adds the sha256 of the output
-of each multi-kernel call timed (and of ``kernel_matvec`` at G_B), so two
+``--quick`` keeps these rows and ``--matvec-t`` sets the widths.
+``serve_ms`` times the serving buckets against the 10^6 rows (t = 1 splits
+n over the grid up to 4096 rows): ``kernel_matvec`` at 8, 64 and 1024
+queries, the weighted matvec at 64 and ``kernel_matvec`` at t = 10 for 64.
+``--digests`` adds the sha256 of the output
+of each multi-kernel call timed, of ``kernel_matvec`` at G_B, the
+prediction and the residual pass (10^6 x 10^6), of the weighted matvec's
+residual pass, and of the serving buckets, so two
 trees' outputs are compared bitwise from their two lines.  Timing is
 ``chip_smoke._time_ms`` (CUDA events), median of 7 after one warm-up.
 Prints one JSON line.  Whichever ``repro_torch`` is first on ``PYTHONPATH``
@@ -54,6 +60,9 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 
+# ops first: in older trees a wrapper module imported first hit a circular
+# import through repro_torch.core, so A/B runs against them import it first
+from repro_torch.kernels import ops  # noqa: E402, F401
 from repro_torch.kernels.kernel_block import kernel_block_cuda  # noqa: E402
 from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda  # noqa: E402
 from repro_torch.kernels.multi import (  # noqa: E402
@@ -115,6 +124,23 @@ def main() -> None:
     report["kernel_matvec_cols"] = mv_cols
     calls["kernel_matvec G_B"] = lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=1.0,
                                                             precision="f32")
+    calls["kernel_matvec prediction"] = lambda: kernel_matvec_cuda(
+        xq, x, z, kernel="rbf", sigma=1.0, precision="f32")
+    calls["kernel_matvec residual"] = lambda: kernel_matvec_cuda(
+        x, x, z, kernel="rbf", sigma=1.0, precision="f32")
+    calls["multi t1 residual"] = lambda: kernel_matvec_multi_cuda(
+        x, x, z, w_refit, kernels=ks, sigmas=sg, precision="f32")
+    # the serving buckets: split over n at t = 1
+    z10 = torch.randn((x.shape[0], 10), generator=gen_mv, device="cuda")
+    serve = {f"mv m{m}": (lambda m=m: kernel_matvec_cuda(xb[:m], x, z, kernel="rbf", sigma=1.0,
+                                                         precision="f32"))
+             for m in (8, chip_smoke.SMALL_M, 1024)}
+    serve[f"multi m{chip_smoke.SMALL_M}"] = lambda: kernel_matvec_multi_cuda(
+        q, x, z, w_refit, kernels=ks, sigmas=sg, precision="f32")
+    serve[f"mv t10 m{chip_smoke.SMALL_M}"] = lambda: kernel_matvec_cuda(
+        q, x, z10, kernel="rbf", sigma=1.0, precision="f32")
+    report["serve_ms"] = {label: median_ms(fn) for label, fn in serve.items()}
+    calls.update({f"serve {label}": fn for label, fn in serve.items()})
     if not args.quick:
         report["kernel_matvec_ms"] = median_ms(
             lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=1.0, precision="f32"))
