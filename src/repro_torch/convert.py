@@ -1,9 +1,10 @@
 """Carry a solved or tuned problem of the JAX package across to the port.
 
-The reference hands over numpy arrays (``np.asarray(out.w)``) and plain
-dicts (``TuneResult.best``); these helpers put them on a device as the
-port's containers, so both packages predict, report residuals and refit
-from the same weights and the same tuned model.
+The reference hands over numpy arrays (``np.asarray(out.w)``), plain dicts
+(``TuneResult.best``) and JSON (``Partition.to_json``); these helpers put
+them on a device as the port's containers, so both packages predict, report
+residuals and refit from the same weights, the same tuned model and the
+same divide-and-conquer model.
 """
 
 from __future__ import annotations
@@ -67,3 +68,42 @@ def state_from_reference(w, v, z, it, *, seed: int = 0, device="cuda") -> Solver
         sketch_res=torch.full(() if w_t.ndim == 1 else (w_t.shape[1],), float("inf"),
                               dtype=torch.float32, device=dev),
     )
+
+
+def partition_from_reference(part):
+    """The port's :class:`~repro_torch.distributed.partition.Partition` from
+    the reference's (or from its ``to_json()`` string): the one format both
+    packages read."""
+    from repro_torch.distributed.partition import Partition
+
+    return Partition.from_json(part if isinstance(part, str) else part.to_json())
+
+
+def dc_from_reference(x, part, shard_ws, *, kernel="rbf", sigma=1.0, weights=None,
+                      precision: str = "f32", combiner: str = "uniform",
+                      softmax_temp: float | None = None, device="cuda"):
+    """A reference DC model as the port's: ``(partition, w, predict_fn)``.
+
+    ``x``: the (n, d) training rows; ``part``: the reference's partition
+    (or its JSON); ``shard_ws``: each shard's weights as numpy
+    (``[np.asarray(o.w) for o in result.shard_outputs]``, one weight per
+    shard row).  ``w`` is the (n[, t]) scatter back to row order and
+    ``predict_fn`` the port's combiner over the shards' kernel sweeps on
+    ``device``."""
+    from repro_torch.core.multikernel import make_operator
+    from repro_torch.distributed.dc import dc_predictor
+
+    dev = resolve_device(device)
+    partition = partition_from_reference(part)
+    x_t = _tensor(np.asarray(x, np.float32), dev)
+    ws = [_tensor(np.asarray(w, np.float32), dev) for w in shard_ws]
+    w = torch.zeros((partition.n,) + tuple(ws[0].shape[1:]), dtype=torch.float32, device=dev)
+    shard_predict = []
+    for idx, w_s in zip(partition.shard_indices(), ws):
+        take = torch.from_numpy(idx).to(dev)
+        w[take] = w_s
+        op = make_operator(x_t.index_select(0, take), kernel=kernel, sigma=_sigma(sigma),
+                           weights=weights, precision=precision)
+        shard_predict.append(lambda xt, op=op, w_s=w_s: op.row_block_matvec(
+            torch.as_tensor(xt).to(dev), w_s))
+    return partition, w, dc_predictor(partition, shard_predict, combiner, softmax_temp, dev)

@@ -2,16 +2,18 @@
 ``solve`` and ``tune``.
 
 ``solve(problem, method, **kw)`` keeps the reference's contract for every
-single-device method (:data:`PORTED_METHODS`: ASkotch / Skotch, the PCG
-family, Falkon, EigenPro and direct): multi-RHS problems, per-head
-convergence in the history records, unknown options failing fast with the
-accepted list, and the universal ``kernel=`` (a name or a tuple of names: a
-weighted-sum multi-kernel solve) / ``weights=`` / ``precision=`` overrides
-with the bf16 tolerance warning.  ``method="dc"`` and ``mesh=`` raise
-``NotImplementedError`` until the distributed slice.
-``tune(problem, **kw)`` routes to the single-kernel or the multi-kernel
-search with the reference's option lists.  The ``backend`` option is gone:
-the problem's tensors decide the device.
+method of :data:`METHODS` (ASkotch / Skotch, the PCG family, Falkon,
+EigenPro, direct and the divide-and-conquer tier ``"dc"``): multi-RHS
+problems, per-head convergence in the history records, unknown options
+failing fast with the accepted list, and the universal ``kernel=`` (a name
+or a tuple of names: a weighted-sum multi-kernel solve) / ``weights=`` /
+``precision=`` overrides with the bf16 tolerance warning.  ``mesh=`` (a
+``repro_torch.distributed.meshes.SolverMesh``) runs the methods of
+:data:`DIST_METHOD_OPTIONS` over a ``ShardedKernelOperator``, and runs a DC
+solve's shards device-parallel.  ``tune(problem, **kw)`` routes to the
+single-kernel or the multi-kernel search with the reference's option lists.
+The ``backend`` option is gone: the problem's tensors (or the mesh) decide
+the device.
 """
 
 from __future__ import annotations
@@ -41,8 +43,8 @@ METHODS = (
     "dc",
 )
 
-#: the methods this package implements: all but the distributed tier
-PORTED_METHODS = tuple(m for m in METHODS if m != "dc")
+#: the methods this package implements: all of them
+PORTED_METHODS = METHODS
 
 #: tolerances below this are unreachable with bf16 kernel tiles; solve()
 #: warns, it does not silently stall
@@ -64,6 +66,15 @@ _EIGENPRO_KEYS = (
     "eval_every", "time_budget_s",
 )
 
+#: options of the divide-and-conquer tier itself (``method="dc"``); the
+#: INNER solver's options (``METHOD_OPTIONS[dc_method]``) ride along
+#: un-prefixed and are validated by the per-shard solve —
+#: ``solve(p, "dc", dc_shards=4, dc_method="pcg-nystrom", rank=50)``
+DC_METHOD_OPTIONS: tuple[str, ...] = (
+    "dc_shards", "dc_partition", "dc_combiner", "dc_method",
+    "dc_softmax_temp",
+)
+
 #: the PCG-family methods and their preconditioner kinds
 _PCG_PRECOND = {
     "pcg-nystrom": "nystrom", "pcg-rpcholesky": "rpcholesky", "pcg-rff": "rff",
@@ -78,6 +89,23 @@ METHOD_OPTIONS: dict[str, tuple[str, ...]] = {
     "falkon": _FALKON_KEYS,
     "eigenpro": _EIGENPRO_KEYS,
     "direct": (),
+    "dc": DC_METHOD_OPTIONS,
+}
+
+_DIST_ASKOTCH_KEYS = (
+    "block_size", "rank", "mu", "nu", "powering_iters",
+    "max_iters", "tol", "eval_every", "seed", "time_budget_s",
+)
+_DIST_PCG_KEYS = (
+    "rank", "rho_mode", "max_iters", "tol", "seed", "time_budget_s",
+)
+
+#: methods (and their accepted options) reachable through solve(..., mesh=...)
+DIST_METHOD_OPTIONS: dict[str, tuple[str, ...]] = {
+    "askotch": _DIST_ASKOTCH_KEYS,
+    "skotch": _DIST_ASKOTCH_KEYS,
+    "pcg-nystrom": _DIST_PCG_KEYS,
+    "cg": _DIST_PCG_KEYS,
 }
 
 #: accepted keyword options of tune() (the reference's list): ``policy``
@@ -128,18 +156,81 @@ def _head_info(problem: KRRProblem, history: list[dict]) -> dict[str, Any]:
     return info
 
 
+def _solve_dist(problem: KRRProblem, method: str, mesh, kw: dict) -> SolveOutput:
+    # imported lazily: the single-device path stays free of the distributed
+    # stack, which itself imports repro_torch.core
+    from repro_torch.distributed import krr_dist
+    from repro_torch.serving.krr_serve import make_krr_predict_fn
+
+    if method not in DIST_METHOD_OPTIONS:
+        raise ValueError(
+            f"method {method!r} has no distributed path; mesh= supports "
+            f"{sorted(DIST_METHOD_OPTIONS)}"
+        )
+    unknown = sorted(set(kw) - set(DIST_METHOD_OPTIONS[method]))
+    if unknown:
+        raise ValueError(
+            f"unknown option(s) {unknown} for method {method!r} with mesh=; "
+            f"accepted: {sorted(DIST_METHOD_OPTIONS[method])}"
+        )
+    if method in ("askotch", "skotch"):
+        res = krr_dist.solve_askotch_dist(
+            problem, mesh, accelerated=(method == "askotch"), **kw
+        )
+    else:
+        res = krr_dist.solve_pcg_dist(problem, mesh, precond=_PCG_PRECOND[method], **kw)
+    return SolveOutput(
+        method=method,
+        w=res.w,
+        history=res.history,
+        info={"iters": res.iters, "converged": res.converged,
+              "wall_time_s": res.wall_time_s, "mesh": dict(mesh.shape),
+              **_head_info(problem, res.history)},
+        predict_fn=make_krr_predict_fn(res.op, res.w),
+    )
+
+
+def _solve_dc(problem: KRRProblem, mesh, telemetry, kw: dict) -> SolveOutput:
+    from repro_torch.distributed.dc import solve_dc  # lazy, as _solve_dist
+
+    bad = sorted(k for k in kw if k.startswith("dc_") and k not in DC_METHOD_OPTIONS)
+    if bad:
+        raise ValueError(
+            f"unknown option(s) {bad} for method 'dc'; accepted: "
+            f"{sorted(DC_METHOD_OPTIONS)} plus the inner method's options "
+            f"(METHOD_OPTIONS[dc_method])"
+        )
+    res = solve_dc(
+        problem,
+        shards=kw.pop("dc_shards", 2),
+        partition=kw.pop("dc_partition", "random"),
+        combiner=kw.pop("dc_combiner", "uniform"),
+        method=kw.pop("dc_method", "askotch"),
+        softmax_temp=kw.pop("dc_softmax_temp", None),
+        mesh=mesh,
+        telemetry=telemetry,
+        **kw,
+    )
+    return SolveOutput(method="dc", w=res.w, history=res.history, info=res.info,
+                       predict_fn=res.predict_fn)
+
+
 def solve(problem: KRRProblem, method: str = "askotch", *, mesh=None, **kw) -> SolveOutput:
-    """Solve (K + lam I) W = Y with any single-device method the paper
-    benchmarks.
+    """Solve (K + lam I) W = Y with any method the paper benchmarks.
 
     Args:
       problem: the :class:`~repro_torch.core.krr.KRRProblem`; ``problem.y``
         may be (n,) or (n, t) one-vs-all heads.
-      method: one of :data:`METHODS`; :data:`PORTED_METHODS` run, ``"dc"``
-        raises ``NotImplementedError``.
-      mesh: must be None until the distributed slice.
-      **kw: exactly :data:`METHOD_OPTIONS[method]`, plus the universal
-        ``kernel=``, ``weights=`` and ``precision=`` overrides and
+      method: one of :data:`METHODS`.
+      mesh: optional :class:`~repro_torch.distributed.meshes.SolverMesh`;
+        the methods of :data:`DIST_METHOD_OPTIONS` then run over a
+        ``ShardedKernelOperator`` with W row-sharded (a (1, 1) mesh runs the
+        distributed code with no collectives), and ``"dc"`` runs its shards
+        on the mesh's devices.
+      **kw: exactly :data:`METHOD_OPTIONS[method]`
+        (:data:`DIST_METHOD_OPTIONS[method]` with ``mesh=``; ``"dc"`` takes
+        :data:`DC_METHOD_OPTIONS` plus the inner method's options), plus the
+        universal ``kernel=``, ``weights=`` and ``precision=`` overrides and
         ``telemetry=`` (a ``repro_torch.obs.Telemetry``: the method's span,
         trace events and tile-work metrics).
 
@@ -150,10 +241,6 @@ def solve(problem: KRRProblem, method: str = "askotch", *, mesh=None, **kw) -> S
     """
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; available: {METHODS}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not yet ported to repro_torch (distributed slice)"
-        )
     telemetry = kw.pop("telemetry", None)
     if "kernel" in kw or "weights" in kw or "precision" in kw:
         problem = dataclasses.replace(
@@ -168,11 +255,22 @@ def solve(problem: KRRProblem, method: str = "askotch", *, mesh=None, **kw) -> S
             'short of it — use precision="f32" for machine-precision targets',
             stacklevel=2,
         )
-    if method not in PORTED_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} is not yet ported to repro_torch (distributed "
-            f"slice); ported: {PORTED_METHODS}"
-        )
+    if method == "dc":
+        # the DC tier owns its mesh handling (explicit per-device placement,
+        # zero collectives): routed before the sharded-operator dispatch
+        return _solve_dc(problem, mesh, telemetry, kw)
+    if mesh is not None:
+        if problem.kernel == "precomputed":
+            raise ValueError(
+                "kernel='precomputed' cannot run over a mesh: the Gram "
+                "matrix is a single-host array with no row-sharded kernel "
+                "evaluation path — drop mesh= or pass the raw features with "
+                "a kernel name"
+            )
+        tel = as_telemetry(telemetry)
+        with tel.span(f"solve/dist-{method}", n=problem.n, t=problem.t,
+                      mesh=dict(mesh.shape)):
+            return _solve_dist(problem, method, mesh, kw)
     _validate_options(method, kw)
     if method in ("askotch", "skotch"):
         cfg_kw = {k: kw.pop(k) for k in _ASKOTCH_CFG_KEYS if k in kw}
@@ -235,7 +333,9 @@ def tune(problem: KRRProblem, *, mesh=None, **kw):
     Args:
       problem: data container (``x``/``y``/``kernel``/``precision`` used;
         ``sigma``/``lam_unscaled`` are the quantities being tuned).
-      mesh: must be None until the distributed slice.
+      mesh: optional :class:`~repro_torch.distributed.meshes.SolverMesh`;
+        candidates then run over the ``ShardedKernelOperator`` path, as
+        ``solve(..., mesh=...)`` does.
       **kw: any of :data:`TUNE_OPTIONS` — or, on the multi-kernel path,
         :data:`MULTIKERNEL_TUNE_OPTIONS`; unknown options raise ValueError
         with the accepted list.  ``telemetry`` records the search span,

@@ -10,8 +10,9 @@ engine's q = 1 case).
 
 ``telemetry=`` records a search span, per-sigma-group spans and canonical
 trace events (solver ``"tune"``, with running ``sweeps``) from every
-stacked solve.  Not ported yet: ``mesh=`` (the distributed slice) raises
-``NotImplementedError`` unless None.
+stacked solve.  ``mesh=`` (a ``repro_torch.distributed.meshes.SolverMesh``)
+runs every candidate over a ``ShardedKernelOperator``; every policy runs
+unchanged over a mesh.
 """
 
 from __future__ import annotations
@@ -392,20 +393,13 @@ def _record(
     return rec
 
 
-def _not_ported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not yet ported to repro_torch; mesh-bound tuning "
-            "arrives with the distributed slice"
-        )
-
-
 def _common_validation(
     problem: KRRProblem,
     sigmas: Sequence[float],
     lams: Sequence[float],
     folds: int,
     strategy: str,
+    mesh,
     halving_eta: float,
     sigma_continuation: bool,
 ) -> None:
@@ -430,6 +424,14 @@ def _common_validation(
         raise ValueError(
             "sigma_continuation requires strategy='shared' (the naive loop "
             "has no stacked solve to continue)"
+        )
+    if strategy == "naive" and mesh is not None and mesh.devices.size > 1:
+        # the naive loop restricts to (k-1)/k * n rows per fold, which the
+        # sharded operator would gather whole onto every device; the
+        # reference loop is single-device
+        raise ValueError(
+            "strategy='naive' is a single-device reference loop; it supports "
+            "at most a 1-device mesh (use strategy='shared' for mesh runs)"
         )
 
 
@@ -519,7 +521,10 @@ def tune(
       warm_start: start each column from the Woodbury apply of the shared
         sketch instead of zero ("shared" strategy only; costs no kernel
         sweeps).
-      mesh: must be None (the distributed slice).
+      mesh: optional :class:`~repro_torch.distributed.meshes.SolverMesh` —
+        candidates then run over a ``ShardedKernelOperator`` with x and the
+        iterates row-sharded (a (1, 1) mesh is valid everywhere); every
+        policy runs unchanged over a mesh.
       telemetry: optional ``repro_torch.obs.Telemetry`` — records a search
         span, per-sigma-group spans, canonical trace events from every
         stacked solve (with running ``sweeps``) and, through the engine's
@@ -531,11 +536,10 @@ def tune(
       ``result.sweeps`` the kernel-tile work consumed, and ``result.trace``
       the per-candidate audit trail (rung scores + prune points).
     """
-    _not_ported(mesh)
     if search not in SEARCHES:
         raise ValueError(f"unknown search {search!r}; accepted: {SEARCHES}")
     _common_validation(
-        problem, sigmas, lams, folds, strategy, halving_eta, sigma_continuation,
+        problem, sigmas, lams, folds, strategy, mesh, halving_eta, sigma_continuation,
     )
     resolved = _resolve_policy(policy, search, strategy, halving_eta)
     space = TuneSpace(
@@ -613,7 +617,6 @@ def tune_multikernel(
       :func:`apply_best` — ``best_w0`` the winner's
       fold-averaged warm start, and ``trace`` the per-candidate audit trail.
     """
-    _not_ported(mesh)
     from repro_torch.core.multikernel import canonical_kernels
 
     if kernels is None:
@@ -626,7 +629,7 @@ def tune_multikernel(
     kernels, _, _ = canonical_kernels(kernels, 1.0, None)
     q = len(kernels)
     _common_validation(
-        problem, sigmas, lams, folds, strategy, halving_eta, sigma_continuation,
+        problem, sigmas, lams, folds, strategy, mesh, halving_eta, sigma_continuation,
     )
     if policy is None:
         policy = "random"

@@ -170,25 +170,29 @@ def canon_sigma(sigma) -> float | tuple[float, ...]:
 
 
 def operator_for(problem: KRRProblem, sigma, mesh, weights=None) -> Any:
-    """Operator for one sigma candidate; ``weights`` re-weights a
-    multi-kernel problem's combination (naive reference loop).  A
-    precomputed-Gram problem has no sigma axis, so its operator is returned
-    unchanged.  ``mesh`` must be None until the distributed slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not yet ported to repro_torch; the sharded operator "
-            "arrives with the distributed slice"
-        )
-    if problem.kernel == "precomputed":
-        return problem.op
-    rep: dict[str, Any] = {"sigma": canon_sigma(sigma)}
-    if weights is not None:
-        rep["weights"] = tuple(float(w) for w in weights)
-    return dataclasses.replace(problem.op, **rep)
+    """Operator for one sigma candidate — local, or with ``mesh`` a bound
+    ``ShardedKernelOperator``; ``weights`` re-weights a multi-kernel
+    problem's combination (naive reference loop).  A precomputed-Gram
+    problem has no sigma axis, so its operator is returned unchanged."""
+    if mesh is None:
+        if problem.kernel == "precomputed":
+            return problem.op
+        rep: dict[str, Any] = {"sigma": canon_sigma(sigma)}
+        if weights is not None:
+            rep["weights"] = tuple(float(w) for w in weights)
+        return dataclasses.replace(problem.op, **rep)
+    from repro_torch.distributed.sharded_operator import ShardedKernelOperator
+
+    return ShardedKernelOperator.bind(
+        mesh, problem.x, kernel=problem.kernel, sigma=canon_sigma(sigma),
+        weights=weights, precision=problem.precision,
+    )
 
 
 def place(op: Any, arr: np.ndarray) -> torch.Tensor:
-    """Row-aligned host data as a tensor on the operator's device."""
+    """Row-aligned host data as a tensor on the operator's device: for a
+    ``ShardedKernelOperator`` that is the row-sharded layout (the global
+    view on the mesh's home device, which each shard slices)."""
     return torch.from_numpy(np.ascontiguousarray(arr)).to(op.x.device)
 
 

@@ -20,7 +20,8 @@ k-fold ridge CV (sklearn included, which reuses one alpha across fold sizes
 by a different convention) accepts.
 
 ``device=`` takes the reference's ``backend=`` slot (see
-:mod:`repro_torch.estimators.kernel_ridge`); ``mesh=`` must be None.
+:mod:`repro_torch.estimators.kernel_ridge`); ``mesh=`` is passed through
+to ``tune`` and the refit's ``solve``.
 """
 
 from __future__ import annotations

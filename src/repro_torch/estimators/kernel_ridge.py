@@ -109,8 +109,9 @@ class KernelRidge(FittedPredictorMixin, RegressorMixin, BaseEstimator):
         ``"cpu"``.  float64 input stays float64 for a direct solve on the
         CPU; the iterative solvers and the card run float32.
       precision: "f32" | "bf16" kernel tile policy.
-      mesh: must be None (the distributed path is not ported yet; anything
-        else raises ``NotImplementedError``, as ``solve`` does).
+      mesh: optional ``repro_torch.distributed.meshes.SolverMesh``, passed
+        through to ``solve`` (a method without a distributed path raises
+        there).
 
     Attributes (after fit):
       dual_coef_: (n,) or (n, t) representer weights, a tensor on the fit

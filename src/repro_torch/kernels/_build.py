@@ -31,6 +31,14 @@ NVCC_FLAGS = (*TARGET_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under a lock: a divide-and-conquer
+    solve over a mesh launches from one host thread per device."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:

@@ -57,7 +57,7 @@ def kernel_block_cuda(
         )
     if err != 0:
         raise RuntimeError(f"kernel_block launch failed: CUDA error {err}")
-    kernel_block_cuda.launches += 1
+    _build.count_launch(kernel_block_cuda)
     return out
 
 

@@ -135,7 +135,7 @@ def kernel_matvec_cuda(
         )
     if err != 0:
         raise RuntimeError(f"kernel_matvec launch failed: CUDA error {err}")
-    kernel_matvec_cuda.launches += 1
+    _build.count_launch(kernel_matvec_cuda)
     return out[:, :t].contiguous() if tp > t else out
 
 

@@ -148,7 +148,7 @@ def kernel_matvec_multi_cuda(
                 int(g0 > 0), *extra, stream,
             )
             _raise_on(err, "kernel_matvec_multi")
-            kernel_matvec_multi_cuda.launches += 1
+            _build.count_launch(kernel_matvec_multi_cuda)
     return out
 
 
@@ -187,7 +187,7 @@ def kernel_matvec_components_cuda(
                 err = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), out[g].data_ptr(),
                          m, n, d, t, len(ids), ids, sig, int(dt == torch.bfloat16), stream)
                 _raise_on(err, "kernel_matvec_components")
-                kernel_matvec_components_cuda.launches += 1
+                _build.count_launch(kernel_matvec_components_cuda)
     return out[:, :, 0] if v.ndim == 1 else out
 
 
@@ -229,7 +229,7 @@ def kernel_block_multi_cuda(
             err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, d, len(ids), ids, sig, w,
                      int(dt == torch.bfloat16), int(g0 > 0), scratch.data_ptr(), stream)
             _raise_on(err, "kernel_block_multi")
-            kernel_block_multi_cuda.launches += 1
+            _build.count_launch(kernel_block_multi_cuda)
     return out
 
 

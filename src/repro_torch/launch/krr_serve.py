@@ -23,9 +23,9 @@ counts, qps, p50/p99 latency, bucket occupancy, bucket shapes launched),
 ``--telemetry PATH`` (``serve/batch`` spans and metrics as JSONL).
 
 ``--device`` (default ``cuda``) picks where the models live and every
-bucket runs; ``cuda`` without a card is an error.  ``--mesh`` (serving
-row-sharded over a device mesh) belongs to the distributed slice and raises
-``NotImplementedError``.
+bucket runs; ``cuda`` without a card is an error.  ``--mesh ROWSxMODEL``
+(or ``auto``) serves every model row-sharded over ``make_solver_mesh(spec,
+device)``.
 """
 
 from __future__ import annotations
@@ -64,7 +64,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--max-rows", type=int, default=16,
                     help="largest simulated request (rows drawn 1..max-rows)")
     ap.add_argument("--mesh", default=None,
-                    help="ROWSxMODEL device mesh (not yet ported: distributed slice)")
+                    help="ROWSxMODEL device mesh (e.g. 4x1) or 'auto': serve "
+                         "each model row-sharded over it")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--telemetry", default=None, metavar="PATH",
                     help="write telemetry (serve/batch spans + metrics) "
@@ -77,9 +78,11 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
     if not args.artifact and args.artifacts_dir is None:
         ap.error("pass at least one --artifact NAME=DIR or --artifacts-dir")
+    mesh = None
     if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh is not yet ported to repro_torch (distributed slice)")
+        from repro_torch.distributed.meshes import make_solver_mesh
+
+        mesh = make_solver_mesh(args.mesh, device=args.device)
 
     tel = Telemetry(jsonl=args.telemetry) if args.telemetry else None
     engine = ServingEngine(max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
@@ -87,12 +90,12 @@ def main(argv: list[str] | None = None) -> dict:
     report: dict = {"loaded": {}}
     try:
         if args.artifacts_dir is not None:
-            report["loaded"].update(engine.load_artifacts_dir(args.artifacts_dir))
+            report["loaded"].update(engine.load_artifacts_dir(args.artifacts_dir, mesh=mesh))
         for spec in args.artifact:
             if "=" not in spec:
                 ap.error(f"--artifact wants NAME=DIR, got {spec!r}")
             name, path = spec.split("=", 1)
-            report["loaded"][name] = engine.load_model(name, path)
+            report["loaded"][name] = engine.load_model(name, path, mesh=mesh)
 
         if args.requests > 0:
             r = np.random.default_rng(args.seed)

@@ -28,8 +28,10 @@ PATH``).  The JSON line has the JAX
 launcher's keys in its order.
 
 ``--device`` (default ``cuda``) picks where the data and every kernel sweep
-live; ``cuda`` without a card is an error.  ``--mesh`` (distributed slice)
-is accepted as a flag and raises ``NotImplementedError``.
+live; ``cuda`` without a card is an error.  ``--mesh ROWSxMODEL`` (or
+``auto``) runs the search and the refit over ``make_solver_mesh(spec,
+device)`` (the report gains ``mesh``; the refit then starts from zero, as
+the reference's does).
 """
 
 from __future__ import annotations
@@ -91,7 +93,8 @@ def main(argv: list[str] | None = None) -> dict:
                          "refit: bf16 tiles with f32 accumulation, or f32")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None,
-                    help="ROWSxMODEL device mesh (not yet ported: distributed slice)")
+                    help="ROWSxMODEL device mesh (e.g. 4x1) or 'auto'; runs "
+                         "the search and the refit over a ShardedKernelOperator")
     ap.add_argument("--dataset", default="regression",
                     choices=["regression", "classification", "one-vs-all", "taxi"])
     ap.add_argument("--classes", type=int, default=4)
@@ -113,9 +116,6 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
     if args.export_artifact and args.no_refit:
         ap.error("--export-artifact needs the refit weights; drop --no-refit")
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh is not yet ported to repro_torch (distributed slice)")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -134,6 +134,11 @@ def main(argv: list[str] | None = None) -> dict:
         x_tr, y_tr, x_te, y_te = gen(args.seed, args.n, args.d, args.n_test, device=dev)
 
     prob = KRRProblem(x=x_tr, y=y_tr, kernel=args.kernel, precision=args.precision)
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.distributed.meshes import make_solver_mesh
+
+        mesh = make_solver_mesh(args.mesh, device=dev)
 
     t0 = time.perf_counter()
     tune_kw = dict(
@@ -170,7 +175,7 @@ def main(argv: list[str] | None = None) -> dict:
         )
     else:
         tune_kw.update(search=args.search, num_samples=args.samples)
-    result = tune(prob, **tune_kw)
+    result = tune(prob, mesh=mesh, **tune_kw)
     report = {
         "best": result.best,
         "strategy": result.strategy,
@@ -185,18 +190,21 @@ def main(argv: list[str] | None = None) -> dict:
     }
     if args.kernels is not None:
         report["weight_samples"] = result.info["weight_samples"]
+    if mesh is not None:
+        report["mesh"] = dict(mesh.shape)
 
     if not args.no_refit:
         best_prob, w0 = apply_best(prob, result, with_w0=True)
         kw = {"max_iters": args.refit_iters}
         if tel is not None:
             kw["telemetry"] = tel  # the refit rides the same JSONL stream
-        if w0 is not None and "w0" in METHOD_OPTIONS.get(args.method, ()):
+        if (w0 is not None and mesh is None
+                and "w0" in METHOD_OPTIONS.get(args.method, ())):
             # warm-start the refit from the winner's fold-averaged CV
             # solution instead of zero
             kw["w0"] = w0
             report["refit_warm_start"] = True
-        out = solve_any(best_prob, args.method, **kw)
+        out = solve_any(best_prob, args.method, mesh=mesh, **kw)
         m = evaluate(out.predict_fn(x_te), y_te)
         report["refit"] = {
             "method": args.method,

@@ -262,7 +262,8 @@ class ServingEngine:
 
         ``config``/``x_train``/``w`` are the ``make_krr_predict_fn_from_config``
         inputs (arrays or tensors, moved to the engine's device); ``mesh=``
-        raises ``NotImplementedError`` (distributed slice).  ``warm=True``
+        (a ``SolverMesh``) serves from training rows row-sharded over it
+        instead, with the weights on its home device.  ``warm=True``
         launches every bucket before the model becomes visible.  If ``name``
         exists the new version replaces it atomically; in-flight requests
         finish on the old model.  Returns an info dict (version, d, bytes,

@@ -12,11 +12,16 @@ the weighted matvec); at t = 1 and up to 4096 rows that launch splits the
 training rows over the grid, so a bucket of a few queries still fills the
 card and a row's score does not depend on the bucket it rides in.
 
+The operator may also be a ``ShardedKernelOperator`` over a
+``SolverMesh`` (``make_sharded_krr_predict_fn``, or ``mesh=`` on the config
+path): both expose the same ``row_block_matvec(a, v)``, so the same closure
+serves a row-sharded model.  Queries stay replicated, the training rows and
+weights stay row-sharded, and per bucket the only cross-device traffic is
+the psum of the (bucket, t) partial scores.
+
 ``make_krr_predict_fn_from_config`` builds the closure straight from the
 best-config dict ``solver_api.tune()`` exports, closing the tune -> refit
--> serve loop.  Serving over a device mesh (``mesh=``,
-``make_sharded_krr_predict_fn``) belongs to the distributed slice and
-raises ``NotImplementedError``.
+-> serve loop.
 """
 
 from __future__ import annotations
@@ -29,9 +34,6 @@ from repro_torch.core.multikernel import make_operator
 from repro_torch.core.operator import KernelOperator
 from repro_torch.device import resolve_device
 from repro_torch.kernels.precision import check_precision
-
-_MESH_MSG = "serving over a device mesh is not yet ported to repro_torch (distributed slice)"
-
 
 #: smallest bucket: requests are padded up to at least this many rows
 MIN_BUCKET = 8
@@ -84,10 +86,25 @@ def make_krr_predict_fn(op, w: torch.Tensor, *, max_batch: int = 4096):
     return predict
 
 
-def make_sharded_krr_predict_fn(mesh, x_train, w, **kwargs):
-    """Serve from row-sharded training rows on ``mesh``: not yet ported
-    (the distributed slice); raises ``NotImplementedError``."""
-    raise NotImplementedError(_MESH_MSG)
+def make_sharded_krr_predict_fn(mesh, x_train, w, *, kernel="rbf", sigma=1.0, weights=None,
+                                precision: str = "f32", max_batch: int = 4096):
+    """Serve all t heads from row-sharded training rows on ``mesh`` (a
+    ``SolverMesh``).
+
+    Binds ``x_train`` row-sharded, places ``w`` (its global view on the
+    mesh's home device) and returns the batched closure of
+    :func:`make_krr_predict_fn`: per bucket the only cross-device traffic is
+    the (bucket, t) psum of the partial scores.  A (1, 1) mesh is the
+    single-device server.  A kernel TUPLE (+ ``weights``) serves the
+    weighted-sum predictor.
+    """
+    from repro_torch.distributed.sharded_operator import ShardedKernelOperator
+
+    op = ShardedKernelOperator.bind(
+        mesh, _host_to(x_train, mesh.home), kernel=kernel, sigma=sigma,
+        weights=weights, precision=precision,
+    )
+    return make_krr_predict_fn(op, _host_to(w, mesh.home), max_batch=max_batch)
 
 
 def bind_operator_from_config(config: dict, x_train, w, *, mesh=None, device="cuda"):
@@ -100,13 +117,12 @@ def bind_operator_from_config(config: dict, x_train, w, *, mesh=None, device="cu
     Gram), parses the kernel / sigma / weights triple (single- or
     multi-kernel, a per-kernel sigma list), validates ``precision`` with
     ``check_precision`` (an unknown policy fails here with the accepted
-    list), and builds the operator through ``core.multikernel.make_operator``.
+    list), and builds the operator through ``core.multikernel.make_operator``
+    or, with ``mesh=`` (a ``SolverMesh``), a row-sharded
+    ``ShardedKernelOperator`` with ``w`` on the mesh's home device.
     ``backend`` is read and ignored: the port dispatches by device.
-    ``device="cuda"`` without a card raises; ``mesh=`` raises
-    ``NotImplementedError`` (distributed slice).
+    ``device="cuda"`` without a card raises.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MSG)
     kernel = config["kernel"]
     sigma = config["sigma"]
     weights = config.get("weights")
@@ -130,6 +146,19 @@ def bind_operator_from_config(config: dict, x_train, w, *, mesh=None, device="cu
     else:
         sigma = float(sigma)
     precision = check_precision(config.get("precision", "f32"))
+    if mesh is not None:
+        if kernel == "precomputed":
+            raise ValueError(
+                "kernel='precomputed' cannot serve over a mesh: the Gram "
+                "matrix has no row-sharded kernel evaluation path"
+            )
+        from repro_torch.distributed.sharded_operator import ShardedKernelOperator
+
+        op = ShardedKernelOperator.bind(
+            mesh, _host_to(x_train, mesh.home), kernel=kernel, sigma=sigma,
+            weights=weights, precision=precision,
+        )
+        return op, _host_to(w, mesh.home)
     dev = resolve_device(device)
     op = make_operator(_host_to(x_train, dev), kernel=kernel, sigma=sigma, weights=weights,
                        precision=precision)
@@ -150,7 +179,7 @@ def make_krr_predict_fn_from_config(config: dict, x_train, w, *, mesh=None,
         ``cv_mse``, ``folds``, ``backend``, ``trace``) are ignored.
       x_train: (n, d) training rows the weights were fit on (array or tensor).
       w: the refit weights, (n,) or (n, t).
-      mesh: serving over a mesh is not yet ported (raises).
+      mesh: optional ``SolverMesh``: serve from row-sharded training rows.
       device: where the rows, weights and every bucket pass live.
 
     Returns:

@@ -370,8 +370,9 @@ def test_solver_api_fail_fast():
         solve(p, "gmres")
     with pytest.raises(ValueError, match=r"unknown option\(s\) \['bogus'\].*accepted"):
         solve(p, "askotch", bogus=1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        solve(p, "dc")
+    with pytest.raises(ValueError, match="inner solver"):
+        solve(p, "dc", dc_method="dc")
+    assert solve(p, "dc", dc_shards=2, dc_method="direct").w.shape == (64,)  # dc runs
     out = solve(p, "askotch", kernel=("rbf", "laplacian"), max_iters=1)  # multi-kernel runs
     assert out.w.shape == (64,)
     with pytest.raises(ValueError, match="unknown kernel"):

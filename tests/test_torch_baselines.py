@@ -288,7 +288,7 @@ def test_eigenpro_matches_with_injected_draws(data):
 def test_solve_runs_every_ported_method_and_fails_fast():
     x, y = _data(9, n=128)
     p = KRRProblem(x=_t(x), y=_t(y), sigma=SIGMA, lam_unscaled=LAM_UNSCALED)
-    assert PORTED_METHODS == tuple(m for m in METHODS if m != "dc")
+    assert PORTED_METHODS == METHODS
     small = {"falkon": {"m": 32, "max_iters": 5}, "eigenpro": {"rank": 8, "subsample": 40},
              "direct": {}, "askotch": {"block_size": 32, "rank": 8, "max_iters": 2},
              "skotch": {"block_size": 32, "rank": 8, "max_iters": 2}}
@@ -301,8 +301,8 @@ def test_solve_runs_every_ported_method_and_fails_fast():
         if method != "askotch":
             with pytest.raises(TypeError, match="telemetry"):
                 solve(p, method, telemetry=object(), **small.get(method, {"max_iters": 1}))
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        solve(p, "dc")
+    with pytest.raises(ValueError, match="inner solver"):
+        solve(p, "dc", dc_method="dc")
     assert set(METHOD_OPTIONS) == set(PORTED_METHODS)
     # every method takes t = 3 heads and the universal overrides (pcg-rff:
     # one shift-invariant kernel only)
@@ -322,12 +322,18 @@ def test_solve_runs_every_ported_method_and_fails_fast():
 
 
 def test_solve_mesh_keyword():
-    """mesh=None is the reference's default and runs; any mesh raises."""
+    """mesh=None is the reference's default and runs; a solver mesh runs
+    the methods with a distributed path and refuses the others."""
+    from repro_torch.distributed.meshes import make_solver_mesh
+
     x, y = _data(10, n=64)
     p = KRRProblem(x=_t(x), y=_t(y), sigma=SIGMA, lam_unscaled=LAM_UNSCALED)
     assert solve(p, "direct", mesh=None).w.shape == (64,)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        solve(p, "cg", mesh=object(), max_iters=1)
+    mesh = make_solver_mesh("1x1", device="cpu")
+    out = solve(p, "cg", mesh=mesh, max_iters=1)
+    assert out.w.shape == (64,) and out.info["mesh"] == {"data": 1, "model": 1}
+    with pytest.raises(ValueError, match="no distributed path"):
+        solve(p, "direct", mesh=mesh)
 
 
 def test_launcher_falkon_keys_match_reference(capsys, monkeypatch):

@@ -4,7 +4,9 @@ on the CPU, a multi-kernel operator whose every primitive launches the
 multi-kernel CUDA kernels, the baselines, the estimators and the SAP steps
 on the card against the CPU, a telemetry-enabled solve, the t = 1 sweep
 split over n (its edges, and a row bitwise the same in every serving
-bucket) and the serving engine on the card against the engine on the CPU.
+bucket), the serving engine on the card against the engine on the CPU, and
+the distributed tier on meshes of cuda:0 against the same meshes of CPU
+devices.
 
 This file imports neither JAX nor the JAX package nor scikit-learn, so it
 runs on a machine with a card and none of them:
@@ -726,3 +728,101 @@ def test_cuda_engine_matches_cpu_engine(cuda_device, rng, cfg, heads):
             np.testing.assert_array_equal(got, want)
             ref = cpu.predict("m", q)
             np.testing.assert_allclose(got, ref, **_tol(ref, *F32_TOL))
+
+
+# ---------------------------------------------------------------------------
+# the distributed tier on the card: a mesh of cuda:0 repeated
+# ---------------------------------------------------------------------------
+
+
+def _mesh(device, shape):
+    from repro_torch.distributed.meshes import SolverMesh
+
+    return SolverMesh([device] * (shape[0] * shape[1]), shape=shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_cuda_sharded_operator_matches_cpu(cuda_device, rng, shape):
+    """Every shard's kernels launch on the card; the primitives agree with
+    the same mesh of CPU devices, and two runs are bitwise equal."""
+    from repro_torch.distributed.sharded_operator import ShardedKernelOperator
+
+    x = rng.standard_normal((512, 9)).astype(np.float32)
+    v = rng.standard_normal((512, 3)).astype(np.float32)
+    a = rng.standard_normal((64, 9)).astype(np.float32)
+    idx = rng.integers(0, 512, 64)
+    ops_ = {dev: ShardedKernelOperator.bind(_mesh(dev, shape), _t(x), sigma=1.5)
+            for dev in ("cpu", "cuda:0")}
+    ops.reset_launches()
+    got = ops_["cuda:0"]
+    outs = [got.matvec(_t(v).cuda()), got.row_block_matvec(_t(a).cuda(), _t(v).cuda()),
+            got.block(_t(a).cuda()), got.block_idx(_t(idx).cuda())]
+    assert ops.launches()["kernel_matvec"] > 0 and ops.launches()["kernel_block"] > 0
+    want = [ops_["cpu"].matvec(_t(v)), ops_["cpu"].row_block_matvec(_t(a), _t(v)),
+            ops_["cpu"].block(_t(a)), ops_["cpu"].block_idx(_t(idx))]
+    for g, w in zip(outs, want):
+        assert g.device.type == "cuda"
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), **_tol(w.numpy(), *F32_TOL))
+    assert torch.equal(got.matvec(_t(v).cuda()), outs[0])
+
+
+@pytest.mark.cuda
+def test_cuda_dist_askotch_steps_match_cpu(cuda_device, rng):
+    """Three distributed ASkotch steps on a (2, 2) mesh of cuda:0 against
+    the same mesh of CPU devices, with injected draws."""
+    from repro_torch.distributed import krr_dist
+
+    n, b, r = 512, 64, 16
+    x = rng.standard_normal((n, 5)).astype(np.float32)
+    y = rng.standard_normal((n,)).astype(np.float32)
+    draws = [(rng.integers(0, n, b), rng.standard_normal((b, r)).astype(np.float32),
+              rng.standard_normal((b,)).astype(np.float32)) for _ in range(3)]
+    cfg = krr_dist.DistKRRConfig(n=n, d=5, sigma=1.5, lam_unscaled=1e-3, block_size=b, rank=r)
+    w = {}
+    for run, dev in enumerate(("cpu", "cuda:0", "cuda:0")):
+        mesh = _mesh(dev, (2, 2))
+        step = krr_dist.make_dist_askotch_step(mesh, cfg)
+        state = krr_dist.init_dist_state(cfg, 0, device=dev)
+        for idx, omega, probe in draws:
+            state = step(state, _t(x).to(dev), _t(y).to(dev), idx=_t(idx), omega=_t(omega),
+                         probe=_t(probe))
+        w[run] = state.w.cpu()
+    np.testing.assert_allclose(w[1].numpy(), w[0].numpy(), **_tol(w[0].numpy(), *F32_TOL))
+    assert torch.equal(w[1], w[2])  # repeated block rows are summed in a fixed order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (3, 1)])
+def test_cuda_dc_mesh_is_bitwise_the_sequential_run(cuda_device, rng, shape):
+    # (3, 1) repeats cuda:0: one host thread per mesh device drives a shard
+    from repro_torch.core.solver_api import solve
+    from repro_torch.kernels import ops
+
+    x = rng.standard_normal((600, 6)).astype(np.float32)
+    y = rng.standard_normal((600,)).astype(np.float32)
+    p = KRRProblem(x=_t(x).cuda(), y=_t(y).cuda(), sigma=1.5, lam_unscaled=1e-3)
+    kw = dict(dc_shards=3, dc_method="askotch", block_size=64, rank=16, max_iters=10)
+    ops.reset_launches()
+    seq = solve(p, "dc", **kw)
+    seq_launches = ops.launches()
+    ops.reset_launches()
+    par = solve(p, "dc", mesh=_mesh("cuda:0", shape), **kw)
+    assert ops.launches() == seq_launches  # counted under a lock from every thread
+    assert torch.equal(seq.w, par.w) and seq.w.device.type == "cuda"
+    assert torch.equal(seq.predict_fn(p.x[:50]), par.predict_fn(p.x[:50]))
+    assert par.info["collective_dispatches"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_partition_distances_run_on_the_card(cuda_device, rng):
+    from repro_torch.distributed.partition import chunked_sq_dists, kmeans_partition
+
+    x = rng.standard_normal((3000, 5)).astype(np.float32)
+    c = x[:4]
+    d_card = chunked_sq_dists(_t(x).cuda(), c, chunk=1000)
+    np.testing.assert_allclose(d_card, chunked_sq_dists(x, c, chunk=1000),
+                               **_tol(d_card, *F32_TOL))
+    part = kmeans_partition(_t(x).cuda(), 4, seed=0)
+    assert sorted(part.sizes.tolist()) == [750] * 4
+    assert part.n == 3000 and part.centers.shape == (4, 5)

@@ -152,8 +152,11 @@ def test_device_and_mesh_are_refused(data):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_est.KernelRidge().fit(X, y)
-    with pytest.raises(NotImplementedError):
-        t_est.KernelRidge(device="cpu", mesh=object()).fit(X, y)
+    from repro_torch.distributed.meshes import make_solver_mesh
+
+    mesh = make_solver_mesh("1x1", device="cpu")
+    with pytest.raises(ValueError, match="no distributed path"):  # auto -> direct
+        t_est.KernelRidge(device="cpu", mesh=mesh).fit(X, y)
 
 
 @pytest.mark.parametrize("cls", ["KernelRidge", "KernelRidgeCV", "MultipleKernelRidgeCV"])

@@ -351,13 +351,19 @@ def test_shutdown_rejects_new_work(model):
 
 
 def test_mesh_raises_not_implemented(engine, model):
+    """A mesh binds a row-sharded operator; what has no row-sharded path
+    (a precomputed Gram) or does not shard evenly is refused."""
+    from repro_torch.distributed.meshes import SolverMesh
+    from repro_torch.distributed.sharded_operator import ShardedKernelOperator
+
     x, w = model
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        engine.register("m", CFG_RBF, x, w, mesh=object())
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        bind_operator_from_config(CFG_RBF, x, w, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        make_sharded_krr_predict_fn(object(), x, w)
+    mesh = SolverMesh(["cpu"] * 2, shape=(2, 1))
+    op, _ = bind_operator_from_config(CFG_RBF, x, w, mesh=mesh, device="cpu")
+    assert isinstance(op, ShardedKernelOperator) and op.n_row_shards == 2
+    with pytest.raises(ValueError, match="precomputed"):
+        engine.register("m", {"kernel": "precomputed", "sigma": 1.0}, x, w, mesh=mesh)
+    with pytest.raises(ValueError, match="do not shard evenly"):
+        make_sharded_krr_predict_fn(SolverMesh(["cpu"] * 7, shape=(7, 1)), x, w)
     assert engine.models() == []
 
 
@@ -396,8 +402,10 @@ def test_serve_launcher_keys_match_reference(capsys, monkeypatch, tmp_path, mode
     from repro_torch.obs import validate_jsonl
 
     assert validate_jsonl(str(tmp_path / "t.jsonl")).get("span", 0) >= 1
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        t_launch.main([*argv, "--device", "cpu", "--mesh", "1x1"])
+    meshed = t_launch.main([*argv, "--device", "cpu", "--mesh", "1x1"])
+    capsys.readouterr()
+    assert list(meshed) == list(report)[:-1]  # no --telemetry this time
+    assert meshed["stats"]["models"]["demo"]["n_requests"] == 20
 
 
 def test_tune_export_artifact_serves_in_reference(tmp_path):

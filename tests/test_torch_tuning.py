@@ -251,8 +251,12 @@ def test_tune_routing_and_validation(data):
         api_tune(p, kernels=("rbf",), search="random")
     with pytest.raises(ValueError, match="policy='grid' does not apply"):
         tune_multikernel(p, kernels=("rbf", "laplacian"), policy="grid", **small)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        api_tune(p, mesh=object(), **small)
+    from repro_torch.distributed.meshes import SolverMesh
+
+    one = api_tune(p, mesh=SolverMesh(["cpu"], shape=(1, 1)), **small)
+    assert one.best == api_tune(p, **small).best
+    with pytest.raises(ValueError, match="single-device reference loop"):
+        api_tune(p, mesh=SolverMesh(["cpu"] * 2, shape=(2, 1)), strategy="naive", **small)
     with pytest.raises(TypeError, match="telemetry"):
         api_tune(p, telemetry=object(), **small)
     with pytest.raises(ValueError, match="folds must be in"):
@@ -306,5 +310,5 @@ def test_tune_launcher_keys_match_reference(capsys, monkeypatch, tmp_path):
     assert list(report["refit"]) == list(j_report["refit"])
     assert report["refit_warm_start"] is True and np.isfinite(report["refit"]["test_rmse"])
     assert json.loads(export.read_text()) == {**report["best"], "trace": report["trace"]}
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    with pytest.raises(ValueError, match="mesh spec 'x' invalid"):
         t_launch.main([*argv, "--device", "cpu", "--mesh", "x"])

@@ -40,7 +40,8 @@ of each multi-kernel call timed, of ``kernel_matvec`` at G_B, the
 prediction and the residual pass (10^6 x 10^6), of the weighted matvec's
 residual pass, and of the serving buckets, so two
 trees' outputs are compared bitwise from their two lines.  Timing is
-``chip_smoke._time_ms`` (CUDA events), median of 7 after one warm-up.
+``chip_smoke._time_ms`` (CUDA events), median of ``--reps`` (7) after one
+warm-up.
 Prints one JSON line.  Whichever ``repro_torch`` is first on ``PYTHONPATH``
 is timed, so two versions are compared by alternating runs within one
 session (A, B, B, A).  Needs a CUDA card.
@@ -97,6 +98,8 @@ def main() -> None:
                     help="add the sha256 of each multi-kernel call's output")
     ap.add_argument("--matvec-t", default=",".join(map(str, MATVEC_T)),
                     help="kernel_matvec's widths t > 1, comma-separated")
+    ap.add_argument("--reps", type=int, default=7,
+                    help="timed launches of each call, after one warm-up (the median is kept)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_torch_kernels: needs a CUDA card")
@@ -104,7 +107,7 @@ def main() -> None:
     q = xb[:chip_smoke.SMALL_M].contiguous()
 
     def median_ms(fn):
-        return chip_smoke._time_ms(fn, reps=7)
+        return chip_smoke._time_ms(fn, reps=args.reps)
 
     ks = chip_smoke.MK_KERNELS
     sg = (1.0,) * len(ks)
