@@ -186,18 +186,41 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                and K_BB.  The kernels line has
                one row per (kernel, path shape), each with the launches of
                that path.
+  7b. lm    — LM serving (``repro_torch.models``, ``serving.serve_step``),
+               which runs no hand-written kernel.  The ten architectures at
+               their reduced size (f32): the same weights and batch (drawn on
+               the CPU from seeds) through ``loss_fn``, ``prefill``, four
+               decode steps (fed the CPU run's tokens) and
+               ``greedy_generate`` on the card and on the CPU, within the f32
+               tolerance, greedy tokens identical, and with experts every
+               routing round routing each token alike; ``moe_ffn`` card
+               against CPU at O(1) inputs with capacity drops and four
+               token chunks (f32).  Then on the card alone, at the
+               JAX serve launcher's defaults (batch 4, prompt 32, 16 new
+               tokens): qwen2-1.5b at its published config (28 layers, bf16
+               activations, f32 parameters), whisper-base and rwkv6-1.6b at
+               theirs, deepseek-moe-16b at its published width with depth
+               cut to 2 layers (28 layers of f32 parameters do not fit):
+               generation, prefill and decode ms (CUDA events, median of
+               5), tok/s, peak memory, the decode step's byte bound
+               (parameters + cache over HBM bandwidth), and decode against
+               a one-token-longer prefill in f32 (flat 2e-3; an MoE model
+               dropless) and, for qwen2-1.5b, in bf16 (the bf16 tolerance,
+               beside what a decode with its cache left unwritten reads).
   8. launch  — ``python -m repro_torch.launch.krr_solve --method askotch
                --iters 50``, ``python -m repro_torch.launch.krr_tune
                --kernels rbf,laplacian,matern52 --n 4000 --export-artifact
                DIR`` and ``python -m repro_torch.launch.krr_serve --artifact
                demo=DIR --requests 200 --rate 500 --prometheus`` on cuda, all
-               with ``--telemetry`` (their JSONL files validate); their JSON
-               keys must be the JAX launchers'.
+               with ``--telemetry`` (their JSONL files validate); then
+               ``python -m repro_torch.launch.serve --arch qwen2-1.5b`` (the
+               published config); their JSON keys must be the JAX
+               launchers'.
 
 Each of the paths in phases 4-6f sets every launch count to 0 just before
 it runs and reads the counts just after; a kernel of the path that was
 never launched fails the run.  Phases run in the order 1-3b', 3c, 4, 4b, 5,
-6, 6b, 6c, 6d, 6e, 6f, 7, 8.
+6, 6b, 6c, 6d, 6e, 6f, 7, 7b, 8.
 
 It imports nothing of JAX or of the JAX package.  Full build logs go to
 ``chiprun_out/chip_smoke_build.log``.
@@ -2651,6 +2674,321 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase lm: LM serving (the ten architectures, four of them at full width)
+# ---------------------------------------------------------------------------
+
+# the JAX serve launcher's defaults (src/repro/launch/serve.py:26-29)
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 16
+LM_STEPS = 4  # decode steps held against the CPU at reduced size
+LM_DMP_TOL = 2e-3  # decode-matches-prefill, f32 (tests/test_models_smoke.py:86-91)
+# qwen2-1.5b in bf16 over 28 layers: atol 0.055 x max(1, |ref|max), for
+# decode against prefill and for each against its f32 twin: about 1.5 x the
+# largest of the three readings (0.149 on logits up to 3.89; bf16 rounding
+# through 28 residual blocks)
+LM_BF16_TOL = (0.0, 0.055, True)
+# the full-width runs: qwen2-1.5b at its published config, whisper-base and
+# rwkv6-1.6b at theirs, deepseek-moe-16b at its published width with depth
+# cut from 28 to 2 layers (28 layers of f32 parameters, ~66 GB, leave no room)
+LM_FULL = (("qwen2-1.5b", {}), ("whisper-base", {}), ("rwkv6-1.6b", {}),
+           ("deepseek-moe-16b", {"num_layers": 2}))
+# keys of the JSON line ``python -m repro.launch.serve`` prints
+# (src/repro/launch/serve.py:40-47)
+LM_LAUNCHER_KEYS = ["arch", "generated_shape", "tokens", "seconds", "tok_per_s", "sample"]
+
+
+def _lm_err(got, ref, rtol: float, atol: float, scaled: bool = True) -> tuple[float, bool]:
+    """(max |got - ref|, within rtol |ref| + atol, the atol scaled by
+    max(1, |ref|max) when ``scaled``)."""
+    got, ref = got.float(), ref.float().to(got.device)
+    diff = (got - ref).abs()
+    bound = rtol * ref.abs() + atol * (max(1.0, float(ref.abs().max())) if scaled else 1.0)
+    return float(diff.max()), got.shape == ref.shape and bool((diff <= bound).all())
+
+
+class _RecordRoutes:
+    """Within the block, every MoE routing round of the port records its
+    (input, gates, experts) on the CPU into ``self.rounds``."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.rounds, self._route = [], layers.moe_route
+
+        def recording(xc, router, k):
+            gates, experts = self._route(xc, router, k)
+            self.rounds.append((xc.cpu(), gates.cpu(), experts.cpu()))
+            return gates, experts
+
+        layers.moe_route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.moe_route = self._route
+
+
+def _routes_agree(card: list, cpu: list) -> tuple[float, bool]:
+    """(worst gate difference, every round of the card run saw the CPU
+    round's input within f32 tolerance and routed every token to the same
+    experts, gates within f32 tolerance)."""
+    import torch
+
+    if len(card) != len(cpu) or not cpu:
+        return math.inf, False
+    worst, ok = 0.0, True
+    for (xg, gg, eg), (xc, gc, ec) in zip(card, cpu):
+        x_ok = _lm_err(xg, xc, *TOL["f32"])[1]
+        g_err, g_ok = _lm_err(gg, gc, *TOL["f32"])
+        worst = max(worst, g_err)
+        ok = ok and x_ok and g_ok and torch.equal(eg, ec)
+    return worst, ok
+
+
+def _lm_run(cfg, params, batch, dev: str, tokens=None) -> dict:
+    """loss, prefill logits, LM_STEPS decode logits (fed ``tokens``, else
+    its own greedy ones), ``greedy_generate``'s tokens and every MoE routing
+    round, all on ``dev``."""
+    with _RecordRoutes() as routes:
+        out = _lm_forward(cfg, params, batch, dev, tokens)
+    return {**out, "routes": routes.rounds}
+
+
+def _lm_forward(cfg, params, batch, dev: str, tokens=None) -> dict:
+    import torch
+
+    from repro_torch.models.model_api import get_model, tree_map
+    from repro_torch.serving.serve_step import _copy_cache, greedy_generate
+
+    impl = get_model(cfg)
+    params = tree_map(lambda t: t.to(dev), params)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    loss, _ = impl.loss_fn(params, batch, cfg)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    logits, cache = impl.prefill(params, prompt, cfg)
+    big = _copy_cache(cache, impl.init_cache(cfg, logits.shape[0],
+                                             int(cache["pos"]) + LM_STEPS, device=dev))
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    dec, fed = [], []
+    for i in range(LM_STEPS):
+        tok = tokens[i].to(dev) if tokens is not None else tok
+        fed.append(tok.cpu())
+        out, big = impl.decode_step(params, big, {"tokens": tok}, cfg)
+        dec.append(out)
+        tok = torch.argmax(out[:, -1], -1)[:, None].to(torch.int32)
+    return {"loss": loss, "logits": logits, "dec": dec, "fed": fed,
+            "greedy": greedy_generate(cfg, params, prompt, LM_STEPS).cpu()}
+
+
+def _lm_reduced(arch: str) -> dict:
+    """One reduced (f32) architecture on the card against the CPU: the same
+    weights and batch (drawn on the CPU from seeds)."""
+    import torch
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data import synthetic
+    from repro_torch.models.model_api import init_params
+
+    cfg = get_reduced_config(arch)
+    params = init_params(torch.Generator().manual_seed(1), cfg, device="cpu")
+    batch = synthetic.batch_for(cfg, (2, 16), 0, 0, device="cpu")
+    cpu = _lm_run(cfg, params, batch, "cpu")
+    card = _lm_run(cfg, params, batch, "cuda", tokens=cpu["fed"])
+    tol = TOL["f32"]
+    checks = {"loss": _lm_err(card["loss"], cpu["loss"], *tol),
+              "prefill": _lm_err(card["logits"], cpu["logits"], *tol)}
+    for i in range(LM_STEPS):
+        checks[f"decode {i}"] = _lm_err(card["dec"][i], cpu["dec"][i], *tol)
+    checks["greedy"] = (0.0, torch.equal(card["greedy"], cpu["greedy"]))
+    if cfg.num_experts:
+        checks["routing"] = _routes_agree(card["routes"], cpu["routes"])
+    return {"phase": "lm", "arch": arch, "config": "reduced f32", "family": cfg.family,
+            "device": str(card["logits"].device), "routing_rounds": len(card["routes"]),
+            "max_abs_err": {k: e for k, (e, _) in checks.items()},
+            "greedy_card": card["greedy"].tolist(), "greedy_cpu": cpu["greedy"].tolist(),
+            "failed": [k for k, (_, ok) in checks.items() if not ok]}
+
+
+def _lm_moe_layer() -> dict:
+    """``moe_ffn`` on the card against the CPU at O(1) inputs, with capacity
+    drops and four token chunks: deepseek-moe-16b's reduced layer (8
+    experts top-2, one shared), 256 tokens routed 64 a round, capacity
+    factor 0.25 (8 slots an expert for 16 assignments on average)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.models import layers, transformer
+
+    cfg = dataclasses.replace(get_reduced_config("deepseek-moe-16b"), capacity_factor=0.25,
+                              moe_dispatch_tokens=64)
+    gen = torch.Generator().manual_seed(5)
+    params = {}
+    for path, (shape, _) in transformer.param_defs(cfg).items():
+        if path.startswith("layers.moe_"):
+            shape = shape[1:]  # one layer
+            params[path[len("layers."):]] = torch.randn(shape, generator=gen) * shape[-2] ** -0.5
+    x = torch.randn((4, 64, cfg.d_model), generator=gen)
+    with _RecordRoutes() as cpu_routes:
+        want = layers.moe_ffn(cfg, x, params)
+    with _RecordRoutes() as card_routes:
+        got = layers.moe_ffn(cfg, x.cuda(), {k: v.cuda() for k, v in params.items()})
+    per_expert = torch.stack([torch.bincount(e.reshape(-1), minlength=cfg.num_experts)
+                              for _, _, e in cpu_routes.rounds])
+    checks = {"output": _lm_err(got, want, *TOL["f32"]),
+              "routing": _routes_agree(card_routes.rounds, cpu_routes.rounds),
+              # the case it is meant to be: 4 rounds, some expert over its 8 slots
+              "drops and chunks": (0.0, len(cpu_routes.rounds) == 4
+                                   and int(per_expert.max()) > 8)}
+    return {"phase": "lm", "arch": "deepseek-moe-16b", "config": "moe_ffn layer, O(1) inputs",
+            "device": str(got.device), "rounds": len(card_routes.rounds),
+            "max_assignments_an_expert": int(per_expert.max()),
+            "max_abs_output": float(want.abs().max()),
+            "max_abs_err": {k: e for k, (e, _) in checks.items()},
+            "failed": [k for k, (_, ok) in checks.items() if not ok]}
+
+
+def _decode_vs_prefill(cfg, params, batch, spoil: str = ""):
+    """(decode logits of the next token, the same token's logits from a
+    prefill one token longer).  ``spoil`` leaves the decode's k and v cache
+    unwritten (zero) at the last prompt position ("last slot") or at every
+    prompt position ("all slots")."""
+    import torch
+
+    from repro_torch.models.model_api import get_model
+    from repro_torch.serving.serve_step import _copy_cache
+
+    impl = get_model(cfg)
+    logits_p, cache = impl.prefill(params, batch, cfg)
+    big = _copy_cache(cache, impl.init_cache(cfg, logits_p.shape[0], int(cache["pos"]) + 4,
+                                             device=logits_p.device))
+    nt = torch.argmax(logits_p[:, -1], -1)[:, None].to(torch.int32)
+    if spoil:
+        lost = slice(int(cache["pos"]) - 1 if spoil == "last slot" else 0, int(cache["pos"]))
+        big["k"][:, :, lost] = 0
+        big["v"][:, :, lost] = 0
+    logits_d, _ = impl.decode_step(params, big, {"tokens": nt}, cfg)
+    longer = {**batch, "tokens": torch.cat([batch["tokens"], nt], dim=1)}
+    return logits_d[:, 0], impl.prefill(params, longer, cfg)[0][:, -1]
+
+
+def _lm_full(arch: str, cut: dict, smi: str) -> dict:
+    """One architecture at its published width on the card: generation at
+    the JAX launcher's defaults, prefill and decode times (CUDA events,
+    median of 5), tok/s, peak memory, the decode's byte bound, and decode
+    against prefill in f32 (and, for qwen2-1.5b, in its bf16)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models.model_api import flatten, get_model, init_params
+    from repro_torch.roofline import hw
+    from repro_torch.serving.serve_step import _copy_cache, greedy_generate
+
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    impl = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    batch = synthetic.batch_for(cfg, (LM_BATCH, LM_PROMPT), 0, 0, device="cuda")
+    batch.pop("labels", None)
+    greedy_generate(cfg, params, batch, 2)  # warm-up (cuBLAS handles, allocator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = greedy_generate(cfg, params, batch, LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    prefill_ms = _time_ms(lambda: impl.prefill(params, batch, cfg))
+    logits, cache = impl.prefill(params, batch, cfg)
+    big = _copy_cache(cache, impl.init_cache(cfg, LM_BATCH, int(cache["pos"]) + LM_NEW,
+                                             device="cuda"))
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    decode_ms = _time_ms(lambda: impl.decode_step(params, big, {"tokens": tok}, cfg))
+    peak = torch.cuda.max_memory_allocated()
+    # a decode step reads every parameter once and the cache it attends over
+    param_bytes = sum(t.numel() * t.element_size() for t in flatten(params).values())
+    cache_bytes = sum(t.numel() * t.element_size() for t in big.values() if t.ndim)
+    bound_ms = 1e3 * (param_bytes + cache_bytes) / hw.HBM_BW
+    rec = {"phase": "lm", "arch": arch, "config": "published" if not cut else
+           f"published width, {cut}", "card": smi, "n_params": cfg.n_params(),
+           "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
+           "generated_shape": list(out.shape), "sample": out[0, :8].tolist(),
+           "generate_s": gen_s, "tok_per_s": LM_BATCH * LM_NEW / gen_s,
+           "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "decode_tok_per_s": 1e3 * LM_BATCH / decode_ms,
+           "peak_mem_gb": peak / 1e9, "param_gb": param_bytes / 1e9,
+           "decode_bound_ms": bound_ms, "decode_bound_by": "bytes",
+           "decode_over_bound": decode_ms / bound_ms, "failed": []}
+    if tuple(out.shape) != (LM_BATCH, LM_NEW) or not (
+            0 <= int(out.min()) and int(out.max()) < cfg.padded_vocab()):
+        rec["failed"].append("generation")
+    # decode against a one-token-longer prefill in f32, at the reference's
+    # tolerance (flat 2e-3).  Capacity routing depends on the token
+    # population: at the published capacity factor a prefill of 4 x 33
+    # tokens over 64 experts drops assignments that a 4-token decode keeps,
+    # so an MoE model is judged dropless (capacity_factor = E / k) and its
+    # published-capacity error is recorded beside it.
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    f32_pair = None  # (decode, prefill) logits of the f32 run, for bf16 below
+    runs = [("f32", f32, (LM_DMP_TOL, LM_DMP_TOL, False))]
+    if cfg.num_experts:
+        runs = [("f32 dropless", dataclasses.replace(
+                    f32, capacity_factor=cfg.num_experts / cfg.top_k),
+                 (LM_DMP_TOL, LM_DMP_TOL, False)),
+                ("f32 published capacity", f32, None)]
+    for name, run_cfg, tol in runs:
+        got, want = _decode_vs_prefill(run_cfg, params, batch)
+        err, ok = _lm_err(got, want, *(tol or (0.0, 0.0)))
+        rec[f"decode_vs_prefill {name}"] = {"max_abs_err": err, "tol": tol and list(tol),
+                                            "max_abs_logit": float(want.abs().max())}
+        if tol and not ok:
+            rec["failed"].append(f"decode vs prefill {name}")
+        if name == "f32":
+            f32_pair = got, want
+    if arch == "qwen2-1.5b":  # its own bf16: each path against its f32 twin too
+        got, want = _decode_vs_prefill(cfg, params, batch)
+        checks = {"decode vs prefill": _lm_err(got, want, *LM_BF16_TOL),
+                  "decode vs f32 decode": _lm_err(got, f32_pair[0], *LM_BF16_TOL),
+                  "prefill vs f32 prefill": _lm_err(want, f32_pair[1], *LM_BF16_TOL)}
+        rec["bf16"] = {k: e for k, (e, _) in checks.items()}
+        rec["bf16"]["tol"] = list(LM_BF16_TOL)
+        rec["bf16"]["argmax_agree"] = float(
+            (got.argmax(-1) == want.argmax(-1)).float().mean())
+        # what a broken bf16 decode reads against the same limit (recorded,
+        # not judged): its cache left unwritten at one or every prompt slot
+        for spoil in ("last slot", "all slots"):
+            broken, _ = _decode_vs_prefill(cfg, params, batch, spoil=spoil)
+            rec["bf16"][f"broken: {spoil} unwritten"] = _lm_err(broken, want, *LM_BF16_TOL)
+        rec["failed"] += [f"bf16 {k}" for k, (_, ok) in checks.items() if not ok]
+    del params, cache, big, logits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_lm(smi: str) -> list[dict]:
+    """The ten reduced architectures on the card against the CPU, then four
+    at full width on the card alone."""
+    from repro_torch.configs.base import ARCH_IDS
+
+    recs = [_lm_moe_layer()]
+    emit(recs[-1])
+    for arch in ARCH_IDS:
+        recs.append(_lm_reduced(arch))
+        emit(recs[-1])
+    for arch, cut in LM_FULL:
+        recs.append(_lm_full(arch, cut, smi))
+        emit(recs[-1])
+    bad = {r["arch"] + " " + r["config"]: r["failed"] for r in recs if r["failed"]}
+    if bad:
+        fail(f"phase lm: {bad}")
+    return recs
+
+
 def _run_launcher(module: str, *args: str, whole: bool = False) -> dict:
     """Run ``python -m module args`` on the card; its last stdout line (its
     whole stdout with ``whole``: krr_serve prints indented JSON)."""
@@ -2710,6 +3048,13 @@ def phase_launch() -> dict:
             fail(f"krr_serve {what} keys {got} != the JAX launcher's {want}")
     if model["n_requests"] != 200 or not serve_counts.get("span", 0) >= 1:
         fail(f"krr_serve served {model['n_requests']} of 200 requests, telemetry {serve_counts}")
+    # the LM serving launcher at qwen2-1.5b's published config, its defaults
+    lm = _run_launcher("repro_torch.launch.serve", "--arch", "qwen2-1.5b")
+    emit({"phase": "launch", "module": "serve", "report": lm})
+    if list(lm) != LM_LAUNCHER_KEYS:
+        fail(f"serve keys {list(lm)} != the JAX launcher's {LM_LAUNCHER_KEYS}")
+    if lm["generated_shape"] != [LM_BATCH, LM_NEW] or lm["tokens"] != LM_BATCH * LM_NEW:
+        fail(f"serve generated {lm['generated_shape']}")
     return report
 
 
@@ -2751,6 +3096,7 @@ def main() -> int:
                     ("taxi", "multikernel", "heads"), serve_recs)}, **dist_launches}
     rows = phase_time(launches, tuple(tune_result.best["weights"]),
                       _tune_weight_cols(tune_result), baseline_recs)
+    phase_lm(smi)
     phase_launch()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{k: r[k] for k in (

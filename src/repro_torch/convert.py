@@ -4,7 +4,8 @@ The reference hands over numpy arrays (``np.asarray(out.w)``), plain dicts
 (``TuneResult.best``) and JSON (``Partition.to_json``); these helpers put
 them on a device as the port's containers, so both packages predict, report
 residuals and refit from the same weights, the same tuned model and the
-same divide-and-conquer model.
+same divide-and-conquer model; ``lm_params_from_reference`` carries an LM
+parameter tree across by its dotted paths.
 """
 
 from __future__ import annotations
@@ -107,3 +108,34 @@ def dc_from_reference(x, part, shard_ws, *, kernel="rbf", sigma=1.0, weights=Non
         shard_predict.append(lambda xt, op=op, w_s=w_s: op.row_block_matvec(
             torch.as_tensor(xt).to(dev), w_s))
     return partition, w, dc_predictor(partition, shard_predict, combiner, softmax_temp, dev)
+
+
+def _leaf_tensor(a) -> torch.Tensor:
+    """A numpy leaf as a tensor; bfloat16 (numpy's ``ml_dtypes`` type, which
+    torch cannot read directly) goes across as its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a copy: JAX arrays are read-only
+
+
+def lm_params_from_reference(params: dict, cfg, *, device="cuda") -> dict:
+    """The JAX package's LM parameter tree (nested dicts of numpy arrays,
+    ``jax.tree.map(np.asarray, params)``) as the port's: every dotted path
+    and shape kept, each leaf on ``device`` in ``cfg``'s parameter dtype.
+    Raises ``ValueError`` on a path missing from or extra to the config's
+    ``param_defs``, or on a shape that differs."""
+    from repro_torch.models.model_api import flatten, get_model, unflatten
+
+    dev = resolve_device(device)
+    defs = get_model(cfg).param_defs(cfg)
+    flat = flatten(params)
+    missing, extra = sorted(set(defs) - set(flat)), sorted(set(flat) - set(defs))
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: paths missing {missing}, extra {extra}")
+    bad = {p: (tuple(np.shape(flat[p])), shape) for p, (shape, _) in defs.items()
+           if tuple(np.shape(flat[p])) != tuple(shape)}
+    if bad:
+        raise ValueError(f"{cfg.name}: shapes (got, want) {bad}")
+    dtype = cfg.parameter_dtype()
+    return unflatten({p: _leaf_tensor(flat[p]).to(device=dev, dtype=dtype) for p in defs})

@@ -19,12 +19,15 @@ import torch
 
 from repro_torch.core.nystrom import cholesky_or_nan
 from repro_torch.core.operator import KernelOperator
+from repro_torch.device import resolve_device
 
 Sampler = Callable[[torch.Generator], torch.Tensor]
 
 
-def uniform_sampler(n: int, b: int, device: torch.device | str = "cpu") -> Sampler:
-    """b distinct indices uniformly at random."""
+def uniform_sampler(n: int, b: int, device: torch.device | str = "cuda") -> Sampler:
+    """b distinct indices uniformly at random, drawn on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    device = resolve_device(device)
 
     def sample(generator: torch.Generator) -> torch.Tensor:
         return torch.randperm(n, generator=generator, device=device)[:b]

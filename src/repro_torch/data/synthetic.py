@@ -1,9 +1,15 @@
-"""Deterministic synthetic KRR datasets — the port of the KRR generators of
-``repro.data.synthetic``.
+"""Deterministic synthetic data — the port of ``repro.data.synthetic``.
 
-The numbers come from numpy, seeded exactly as in the reference, so both
-packages build identical data from a seed; only the returned container
-differs (tensors on ``device``, the card unless the caller asks for the CPU).
+LM side: the reference's noisy arithmetic-progression token stream, VLM
+prefix embeddings and audio frames, with the same shapes, dtypes and ``-1``
+prefix labels, drawn from an explicit ``torch.Generator`` on the batch's
+device (torch's streams, not JAX's: the tokens differ from the reference's
+for the same seed).
+
+KRR side: the numbers come from numpy, seeded exactly as in the reference,
+so both packages build identical data from a seed; only the returned
+container differs (tensors on ``device``, the card unless the caller asks
+for the CPU).
 """
 
 from __future__ import annotations
@@ -12,6 +18,68 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+
+# ----------------------------------------------------------------------------
+# LM tokens
+# ----------------------------------------------------------------------------
+
+
+def lm_batch(generator: torch.Generator, batch: int, seq: int, vocab: int) -> dict:
+    """{tokens, labels} int32 on the generator's device: a noisy arithmetic
+    progression per sequence (start, stride in [1, 17), 5 % noise)."""
+    dev = generator.device
+    start = torch.randint(0, vocab, (batch, 1), generator=generator, device=dev)
+    stride = torch.randint(1, 17, (batch, 1), generator=generator, device=dev)
+    pos = torch.arange(seq + 1, device=dev)[None, :]
+    clean = (start + stride * pos) % vocab
+    noise_mask = torch.rand((batch, seq + 1), generator=generator, device=dev) < 0.05
+    noise = torch.randint(0, vocab, (batch, seq + 1), generator=generator, device=dev)
+    toks = torch.where(noise_mask, noise, clean).to(torch.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def vlm_batch(generator: torch.Generator, batch: int, seq: int, vocab: int, prefix: int,
+              d_model: int, dtype=torch.bfloat16) -> dict:
+    """``seq - prefix`` tokens, ``prefix`` patch embeddings (0.02 x normal)
+    and labels of length ``seq`` whose first ``prefix`` entries are -1."""
+    base = lm_batch(generator, batch, seq - prefix, vocab)
+    emb = 0.02 * torch.randn((batch, prefix, d_model), generator=generator,
+                             device=generator.device)
+    labels = torch.cat([torch.full((batch, prefix), -1, dtype=torch.int32,
+                                   device=generator.device), base["labels"]], dim=1)
+    return {"tokens": base["tokens"], "labels": labels, "prefix_embeds": emb.to(dtype)}
+
+
+def encdec_batch(generator: torch.Generator, batch: int, seq: int, vocab: int,
+                 d_model: int, dtype=torch.bfloat16) -> dict:
+    """Tokens, labels and ``seq`` audio frames (0.1 x normal)."""
+    base = lm_batch(generator, batch, seq, vocab)
+    frames = 0.1 * torch.randn((batch, seq, d_model), generator=generator,
+                               device=generator.device)
+    return {"frames": frames.to(dtype), "tokens": base["tokens"], "labels": base["labels"]}
+
+
+def batch_for(cfg, shape_or_dims, seed: int, step: int, *, device="cuda") -> dict:
+    """Family-aware synthetic batch on ``device``.  shape_or_dims: a
+    ShapeConfig or (B, T); the generator is seeded from (seed, step)."""
+    if hasattr(shape_or_dims, "global_batch"):
+        b, t = shape_or_dims.global_batch, shape_or_dims.seq_len
+    else:
+        b, t = shape_or_dims
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(
+        seed * 1_000_003 + step)
+    dt = cfg.activation_dtype()
+    if cfg.family == "encdec":
+        return encdec_batch(gen, b, t, cfg.vocab_size, cfg.d_model, dt)
+    if cfg.num_prefix_tokens:
+        return vlm_batch(gen, b, t, cfg.vocab_size, cfg.num_prefix_tokens, cfg.d_model, dt)
+    return lm_batch(gen, b, t, cfg.vocab_size)
+
+
+# ----------------------------------------------------------------------------
+# KRR datasets (paper-flavor)
+# ----------------------------------------------------------------------------
 
 
 def _to(device, *arrays: np.ndarray) -> tuple[torch.Tensor, ...]:

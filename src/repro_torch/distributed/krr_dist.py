@@ -45,6 +45,7 @@ from repro_torch.core.kernels import KERNEL_NAMES
 from repro_torch.core.krr import KRRProblem, residual_report, scaled_lam
 from repro_torch.core.nystrom import nystrom_from_sketch
 from repro_torch.core.operator import as_multirhs, maybe_squeeze
+from repro_torch.device import resolve_device
 from repro_torch.distributed.meshes import SolverMesh
 from repro_torch.distributed.sharded_operator import (
     ShardedKernelOperator,
@@ -252,11 +253,11 @@ def make_dist_askotch_step(mesh: SolverMesh, cfg: DistKRRConfig):
     return step
 
 
-def init_dist_state(cfg: DistKRRConfig, seed: int = 0, *, device="cpu") -> DistState:
+def init_dist_state(cfg: DistKRRConfig, seed: int = 0, *, device="cuda") -> DistState:
     """Zero iterates on ``device`` (the mesh's home device), the step's
     generator seeded with ``seed`` and the powering's warm-start vector
     drawn from a generator seeded with ``seed + 7``."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     shape = (cfg.n,) if cfg.heads == 1 else (cfg.n, cfg.heads)
     z = torch.zeros(shape, dtype=torch.float32, device=dev)
     pv = torch.randn((cfg.block_size,), dtype=torch.float32, device=dev,

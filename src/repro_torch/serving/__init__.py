@@ -1,3 +1,4 @@
-"""KRR serving on the port: the batched bucket scorer (``krr_serve``) and
-the coalescing multi-model engine (``engine``), counterparts of
-``repro.serving.krr_serve`` and ``repro.serving.engine``."""
+"""Serving on the port: the KRR bucket scorer (``krr_serve``), the
+coalescing multi-model engine (``engine``) and the LM prefill / decode steps
+with greedy generation (``serve_step``), counterparts of
+``repro.serving.{krr_serve,engine,serve_step}``."""

@@ -345,7 +345,7 @@ def test_convert_from_reference_predicts_identically(regression_data, jax_regres
 
 def test_samplers(rng):
     g = torch.Generator().manual_seed(0)
-    idx = samplers.uniform_sampler(100, 30)(g)
+    idx = samplers.uniform_sampler(100, 30, device="cpu")(g)
     assert idx.shape == (30,) and len(set(idx.tolist())) == 30 and int(idx.max()) < 100
     scores = rng.uniform(0.01, 1.0, 50).astype(np.float32)
     probs = samplers.arls_probs(_t(scores))

@@ -6,7 +6,9 @@ on the card against the CPU, a telemetry-enabled solve, the t = 1 sweep
 split over n (its edges, and a row bitwise the same in every serving
 bucket), the serving engine on the card against the engine on the CPU, and
 the distributed tier on meshes of cuda:0 against the same meshes of CPU
-devices.
+devices, and every reduced LM architecture (loss, prefill, decode, greedy
+tokens, a decode at a clamped position, the serving launcher) on the card
+against the CPU.
 
 This file imports neither JAX nor the JAX package nor scikit-learn, so it
 runs on a machine with a card and none of them:
@@ -20,7 +22,10 @@ atol 2e-5 scaled by max(1, |ref|max) (summation order differs), bf16
 distances round differently).
 """
 
+import contextlib
+import dataclasses
 import json
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -826,3 +831,175 @@ def test_cuda_kmeans_partition_distances_run_on_the_card(cuda_device, rng):
     part = kmeans_partition(_t(x).cuda(), 4, seed=0)
     assert sorted(part.sizes.tolist()) == [750] * 4
     assert part.n == 3000 and part.centers.shape == (4, 5)
+
+
+# ---------------------------------------------------------------------------
+# LM serving: every reduced architecture on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _lm_close(got, want, cfg, what):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    np.testing.assert_allclose(got, want, err_msg=what, **_tol(want, *F32_TOL))
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Every MoE routing round of the port within the block, as (input,
+    gates, experts) on the CPU."""
+    from repro_torch.models import layers
+
+    rounds, route = [], layers.moe_route
+
+    def recording(xc, router, k):
+        gates, experts = route(xc, router, k)
+        rounds.append((xc.cpu(), gates.cpu(), experts.cpu()))
+        return gates, experts
+
+    with mock.patch.object(layers, "moe_route", recording):
+        yield rounds
+
+
+def _assert_routes_agree(card, cpu):
+    """Each card round saw its CPU round's input and routed every token to
+    the same experts (gates and inputs within f32 tolerance)."""
+    assert len(card) == len(cpu) > 0
+    for n, ((xg, gg, eg), (xc, gc, ec)) in enumerate(zip(card, cpu)):
+        np.testing.assert_allclose(xg.numpy(), xc.numpy(), err_msg=f"round {n} input",
+                                   **_tol(xc.numpy(), *F32_TOL))
+        assert torch.equal(eg, ec), f"round {n} experts"
+        np.testing.assert_allclose(gg.numpy(), gc.numpy(), err_msg=f"round {n} gates",
+                                   **_tol(gc.numpy(), *F32_TOL))
+
+
+def _lm_inputs(arch):
+    """Reduced (f32) weights and a batch drawn on the CPU from a seed."""
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data import synthetic
+    from repro_torch.models.model_api import init_params
+
+    cfg = get_reduced_config(arch)
+    params = init_params(torch.Generator().manual_seed(1), cfg, device="cpu")
+    batch = synthetic.batch_for(cfg, (2, 16), 0, 0, device="cpu")
+    return cfg, params, batch
+
+
+def _lm_run(cfg, params, batch, dev, tokens=None, steps=4):
+    """loss, prefill logits, ``steps`` decode logits (fed ``tokens``, else
+    greedy), the greedy tokens of ``greedy_generate`` and every MoE routing
+    round, on ``dev``."""
+    with _recorded_routes() as rounds:
+        out = _lm_forward(cfg, params, batch, dev, tokens, steps)
+    return {**out, "routes": rounds}
+
+
+def _lm_forward(cfg, params, batch, dev, tokens, steps):
+    from repro_torch.models.model_api import get_model, tree_map
+    from repro_torch.serving.serve_step import _copy_cache, greedy_generate
+
+    impl = get_model(cfg)
+    params = tree_map(lambda t: t.to(dev), params)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    loss, _ = impl.loss_fn(params, batch, cfg)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    logits, cache = impl.prefill(params, prompt, cfg)
+    total = int(cache["pos"]) + steps
+    big = _copy_cache(cache, impl.init_cache(cfg, logits.shape[0], total, device=dev))
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    dec, fed = [], []
+    for i in range(steps):
+        tok = tokens[i].to(dev) if tokens is not None else tok
+        fed.append(tok.cpu())
+        out, big = impl.decode_step(params, big, {"tokens": tok}, cfg)
+        dec.append(out)
+        tok = torch.argmax(out[:, -1], -1)[:, None].to(torch.int32)
+    return {"loss": loss, "logits": logits, "dec": dec, "fed": fed,
+            "greedy": greedy_generate(cfg, params, prompt, steps)}
+
+
+LM_ARCHS = ("whisper-base", "grok-1-314b", "deepseek-moe-16b", "qwen2-1.5b", "chatglm3-6b",
+            "command-r-plus-104b", "llama3-405b", "rwkv6-1.6b", "jamba-1.5-large-398b",
+            "llava-next-mistral-7b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_reduced_matches_cpu(cuda_device, arch):
+    """Loss, prefill logits, four decode steps (fed the CPU run's tokens)
+    and greedy tokens on the card against the CPU, f32 tolerance; with
+    experts, every routing round routes alike."""
+    cfg, params, batch = _lm_inputs(arch)
+    cpu = _lm_run(cfg, params, batch, "cpu")
+    card = _lm_run(cfg, params, batch, cuda_device, tokens=cpu["fed"])
+    assert card["logits"].device.type == "cuda"
+    _lm_close(card["loss"], cpu["loss"], cfg, "loss")
+    _lm_close(card["logits"], cpu["logits"], cfg, "prefill logits")
+    for i, (g, w) in enumerate(zip(card["dec"], cpu["dec"])):
+        _lm_close(g, w, cfg, f"decode step {i}")
+    assert torch.equal(card["greedy"].cpu(), cpu["greedy"])
+    if cfg.num_experts:
+        _assert_routes_agree(card["routes"], cpu["routes"])
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ffn_with_drops_and_chunks_matches_cpu(cuda_device):
+    """``moe_ffn`` on the card against the CPU at O(1) inputs: 256 tokens
+    routed 64 a round (four chunks) at capacity factor 0.25, so experts
+    drop assignments; f32 tolerance, and every round routes alike."""
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.models import layers, transformer
+
+    cfg = dataclasses.replace(get_reduced_config("deepseek-moe-16b"), capacity_factor=0.25,
+                              moe_dispatch_tokens=64)
+    gen = torch.Generator().manual_seed(5)
+    params = {}
+    for path, (shape, _) in transformer.param_defs(cfg).items():
+        if path.startswith("layers.moe_"):
+            w = torch.randn(shape[1:], generator=gen) * shape[-2] ** -0.5
+            params[path[len("layers."):]] = w
+    x = torch.randn((4, 64, cfg.d_model), generator=gen)
+    with _recorded_routes() as cpu_rounds:
+        want = layers.moe_ffn(cfg, x, params)
+    with _recorded_routes() as card_rounds:
+        got = layers.moe_ffn(cfg, x.to(cuda_device),
+                             {k: v.to(cuda_device) for k, v in params.items()})
+    assert got.device.type == "cuda" and len(cpu_rounds) == 4
+    assert max(int(torch.bincount(e.reshape(-1)).max()) for _, _, e in cpu_rounds) > 8
+    _lm_close(got, want, cfg, "moe_ffn")
+    _assert_routes_agree(card_rounds, cpu_rounds)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_decode_at_clamped_pos_matches_cpu(cuda_device):
+    """A decode at pos == cache length writes the last slot (the clamp of
+    ``lax.dynamic_update_slice``) on the card as on the CPU."""
+    from repro_torch.models.model_api import get_model, tree_map
+
+    cfg, params, _ = _lm_inputs("qwen2-1.5b")
+    impl = get_model(cfg)
+    gen = torch.Generator().manual_seed(4)
+    shape = (cfg.num_layers, 2, 6, cfg.kv_heads, cfg.hd)
+    cache = {"k": torch.randn(shape, generator=gen), "v": torch.randn(shape, generator=gen),
+             "pos": torch.tensor(6, dtype=torch.int32)}
+    tok = torch.tensor([[5], [7]], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        c = {k: v.clone().to(dev) for k, v in cache.items()}
+        out[str(dev)] = impl.decode_step(tree_map(lambda t: t.to(dev), params), c,
+                                         {"tokens": tok.to(dev)}, cfg)
+    (lc, cc), (lg, cg) = out["cpu"], out["cuda"]
+    _lm_close(lg, lc, cfg, "logits")
+    for k in ("k", "v"):
+        _lm_close(cg[k], cc[k], cfg, k)
+        assert torch.equal(cg[k][:, :, :-1].cpu(), cache[k][:, :, :-1])
+    assert int(cg["pos"]) == 7
+
+
+@pytest.mark.cuda
+def test_cuda_serve_launcher_reduced(cuda_device, capsys):
+    from repro_torch.launch import serve
+
+    report = serve.main(["--arch", "qwen2-1.5b", "--reduced"])  # the cuda default
+    assert list(report) == ["arch", "generated_shape", "tokens", "seconds", "tok_per_s",
+                            "sample"]
+    assert report["generated_shape"] == [4, 16] and report["tokens"] == 64
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == report

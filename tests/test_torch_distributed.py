@@ -268,7 +268,7 @@ def test_dist_askotch_steps_match_reference_with_injected_draws(shape, heads):
     mesh = _cpu_mesh(shape)
     step = krr_dist.make_dist_askotch_step(mesh, cfg)
     bound = ShardedKernelOperator.bind(mesh, torch.from_numpy(x), sigma=1.5)
-    state = krr_dist.init_dist_state(cfg, 0)
+    state = krr_dist.init_dist_state(cfg, 0, device="cpu")
     before = obs_metrics.snapshot()
     for idx, omega, probe in draws:
         state = step(state, bound.x_shards, torch.from_numpy(y), idx=torch.from_numpy(idx),

@@ -6,6 +6,7 @@
         --weights 0.665,0.021,0.314
     PYTHONPATH=src python3 tools/profile_torch_step.py --path tune --n 20000 --steps 5
     PYTHONPATH=src python3 tools/profile_torch_step.py --path serve --block 64 --steps 50
+    PYTHONPATH=src python3 tools/profile_torch_step.py --path lm --steps 5
 
 ``--path askotch`` (default): the taxi configuration of ``chip_smoke.py``
 (d = 9, sigma = 1, lam_unscaled = 2e-7, b = 50,000, r = 100, f32) with
@@ -28,6 +29,11 @@ stay out of it.
 query rows (default 64) padded to their bucket, copied to the card, one
 kernel launch (at t = 1 split over n: pack, sweep, reduce), the scores
 copied back; ``--steps`` passes under the profiler, after a warm-up pass.
+
+``--path lm``: decode steps of qwen2-1.5b at its published config (the
+LM that ``chip_smoke.py`` times at full size; random weights from seed 0)
+at the JAX serve launcher's batch of 4 after a 32-token prefill, each fed
+its own greedy token and ending in a synchronize; one warm-up step first.
 
 Prints one JSON line per device operation group (top 15 by device time, per
 step) and a summary line with the host wall time per step and the device
@@ -121,9 +127,43 @@ def _serve_steps(args, problem):
     return run, walls
 
 
+def _lm_steps(args):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model_api import get_model, init_params
+    from repro_torch.serving.serve_step import _copy_cache
+
+    cfg = get_config("qwen2-1.5b")
+    impl = get_model(cfg)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    batch = synthetic.batch_for(cfg, (4, 32), 0, 0, device="cuda")
+    batch.pop("labels", None)
+    logits, cache = impl.prefill(params, batch, cfg)
+    cache = _copy_cache(cache, impl.init_cache(cfg, 4, int(cache["pos"]) + args.steps + 1,
+                                               device="cuda"))
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+
+    def step():
+        nonlocal cache, tok
+        out, cache = impl.decode_step(params, cache, {"tokens": tok}, cfg)
+        tok = torch.argmax(out[:, -1], -1)[:, None].to(torch.int32)
+
+    step()
+    torch.cuda.synchronize()
+    walls = []
+
+    def run():
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+    return run, walls
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", default="askotch", choices=["askotch", "tune", "serve"])
+    ap.add_argument("--path", default="askotch", choices=["askotch", "tune", "serve", "lm"])
     ap.add_argument("--n", type=int, default=None,
                     help="rows (default 10^6 for askotch, 20,000 for tune)")
     ap.add_argument("--block", type=int, default=None,
@@ -143,12 +183,16 @@ def main() -> None:
     default_kernels = "rbf,laplacian,matern52" if args.path == "tune" else "rbf"
     kernels = tuple((args.kernels or default_kernels).split(","))
     n = args.n or (20_000 if args.path == "tune" else 1_000_000)
-    x, y = synthetic.taxi_like(0, n, 9, device="cuda")
-    weights = None if args.weights is None else tuple(float(w) for w in args.weights.split(","))
-    problem = KRRProblem(x=x, y=y, kernel=kernels[0] if len(kernels) == 1 else kernels,
-                         weights=weights, sigma=1.0, lam_unscaled=2e-7)
-    run, walls = {"askotch": _askotch_steps, "tune": _tune_steps,
-                  "serve": _serve_steps}[args.path](args, problem)
+    if args.path == "lm":
+        run, walls = _lm_steps(args)
+    else:
+        x, y = synthetic.taxi_like(0, n, 9, device="cuda")
+        weights = (None if args.weights is None
+                   else tuple(float(w) for w in args.weights.split(",")))
+        problem = KRRProblem(x=x, y=y, kernel=kernels[0] if len(kernels) == 1 else kernels,
+                             weights=weights, sigma=1.0, lam_unscaled=2e-7)
+        run, walls = {"askotch": _askotch_steps, "tune": _tune_steps,
+                      "serve": _serve_steps}[args.path](args, problem)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
@@ -167,7 +211,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "summary": True, "path": args.path, "kernels": list(kernels), "n": n,
+        "summary": True, "path": args.path,
+        **({"arch": "qwen2-1.5b"} if args.path == "lm" else {"kernels": list(kernels), "n": n}),
         "block": args.block, "steps": args.steps,
         "wall_ms_per_step": [1e3 * w for w in walls],
         "wall_ms_per_step_median": 1e3 * statistics.median(walls),
