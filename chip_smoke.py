@@ -207,6 +207,34 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                a one-token-longer prefill in f32 (flat 2e-3; an MoE model
                dropless) and, for qwen2-1.5b, in bf16 (the bf16 tolerance,
                beside what a decode with its cache left unwritten reads).
+  7c. train — LM training (``repro_torch.training``, ``checkpoint``,
+               ``data.pipeline``, ``launch.train``), which runs no
+               hand-written kernel.  The ten architectures at their reduced
+               size (f32, B = 2, T = 16): the same numpy parameters and
+               batch through ``value_and_grad`` and one AdamW train step
+               (eps 1e-3) on the card and on the CPU: loss, every gradient
+               leaf and every parameter after the step within the f32
+               tolerance, with experts every routing round routing alike.
+               qwen2-1.5b at its published config (28 layers, bf16
+               activations, f32 parameters, remat "full") at the JAX train
+               launcher's defaults (batch 8, seq 128, AdamW at 3e-4): the
+               step-0 loss within 0.5-1.5 x ln(padded vocab); its gradient
+               under remat "full" against "none" (each leaf within 1e-3 x
+               its largest magnitude; bitwise or not recorded) and against
+               an f32 twin's (cosine >= 0.99, norm ratio in [0.9, 1.1]);
+               microbatches 2 against 1 (loss within 2e-3 relative, the
+               update's cosine >= 0.99); then 10 steps of
+               ``launch.train.build``'s optimizer on one repeated batch (the
+               last loss below the first): step ms (CUDA events, median of
+               the last 5), tok/s, peak memory with remat and of one step
+               without (under 80 GB), and the step's bound (8 N tokens
+               FLOPs at 989 TFLOP/s plus AdamW's 7 x the parameter bytes at
+               3.35 TB/s).  Then ``python -m repro_torch.launch.train``:
+               the JAX test's fault drill (reduced qwen2, 30 steps, batch 4,
+               seq 16, checkpoints every 10, a failure injected at 17; the
+               step-30 loss within 1e-4 of a clean run's) and qwen2-1.5b at
+               its published config for 20 steps without a checkpoint
+               directory (tok/s from the median of its last 10 steps).
   8. launch  — ``python -m repro_torch.launch.krr_solve --method askotch
                --iters 50``, ``python -m repro_torch.launch.krr_tune
                --kernels rbf,laplacian,matern52 --n 4000 --export-artifact
@@ -220,7 +248,7 @@ Phases, each printing its own JSON line; any failure exits non-zero:
 Each of the paths in phases 4-6f sets every launch count to 0 just before
 it runs and reads the counts just after; a kernel of the path that was
 never launched fails the run.  Phases run in the order 1-3b', 3c, 4, 4b, 5,
-6, 6b, 6c, 6d, 6e, 6f, 7, 7b, 8.
+6, 6b, 6c, 6d, 6e, 6f, 7, 7b, 7c, 8.
 
 It imports nothing of JAX or of the JAX package.  Full build logs go to
 ``chiprun_out/chip_smoke_build.log``.
@@ -2717,7 +2745,7 @@ class _RecordRoutes:
 
         def recording(xc, router, k):
             gates, experts = self._route(xc, router, k)
-            self.rounds.append((xc.cpu(), gates.cpu(), experts.cpu()))
+            self.rounds.append((xc.detach().cpu(), gates.detach().cpu(), experts.cpu()))
             return gates, experts
 
         layers.moe_route = recording
@@ -2989,9 +3017,300 @@ def phase_lm(smi: str) -> list[dict]:
     return recs
 
 
-def _run_launcher(module: str, *args: str, whole: bool = False) -> dict:
-    """Run ``python -m module args`` on the card; its last stdout line (its
-    whole stdout with ``whole``: krr_serve prints indented JSON)."""
+# ---------------------------------------------------------------------------
+# phase train: LM training (the ten reduced configs, qwen2-1.5b at full size)
+# ---------------------------------------------------------------------------
+
+# the JAX train launcher's defaults (src/repro/launch/train.py:138-150)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 128, 3e-4
+TRAIN_STEPS = 10  # on one repeated batch
+# AdamW's eps in the card-against-CPU step: at the default 1e-8 a first
+# step moves a weight by ~lr x sign(g), so a gradient of ~1e-7 whose last
+# digits differ (inside the gradient tolerance) moves it by another amount
+TRAIN_CHECK_EPS = 1e-3
+# remat "full" against "none" at qwen2-1.5b (bf16 activations): each
+# gradient leaf within 1e-3 x its largest magnitude (recorded whether bitwise)
+TRAIN_REMAT_TOL = 1e-3
+# the bf16 step-0 gradient against its f32 twin's: cosine similarity >= 0.99,
+# global-norm ratio within [0.9, 1.1]
+TRAIN_BF16_COS, TRAIN_BF16_NORM = 0.99, (0.9, 1.1)
+# microbatches 2 against 1 (bf16): losses within 2e-3 relative; the
+# parameters' updates with cosine similarity >= 0.99
+TRAIN_MB_LOSS_RTOL, TRAIN_MB_COS = 2e-3, 0.99
+# the launcher's fault drill at the JAX test's shapes
+# (tests/test_distributed.py:265-288)
+DRILL_ARGS = ("--arch", "qwen2-1.5b", "--reduced", "--steps", "30", "--batch", "4",
+              "--seq", "16", "--lr", "1e-3", "--ckpt-every", "10", "--log-every", "5")
+LAUNCH_TRAIN_STEPS = 20  # the full-width launcher run, no checkpoint directory
+
+
+def _np_lm_params(cfg, seed: int = 0) -> dict:
+    """numpy parameters over the port's param_defs: uniform draws of
+    standard deviation 0.02, norm scales 1 + 0.1 x a unit-variance draw
+    (as the CPU parity tests draw them), as CPU tensors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model_api import get_model, unflatten
+
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for path, (shape, _) in sorted(get_model(cfg).param_defs(cfg).items()):
+        z = (rng.random(shape, dtype=np.float32) - 0.5) * (2.0 * 3.0**0.5)
+        flat[path] = torch.from_numpy(1.0 + 0.1 * z if path.endswith("scale") else 0.02 * z)
+    return unflatten(flat)
+
+
+def _train_run(cfg, params, batch, dev: str) -> dict:
+    """Loss, gradients and one AdamW train step on ``dev`` (from copies of
+    the CPU inputs), with every MoE routing round recorded."""
+    from repro_torch.models.model_api import flatten, get_model, tree_map
+    from repro_torch.training.optimizers import adamw
+    from repro_torch.training.train_step import make_train_step, value_and_grad
+
+    params = tree_map(lambda t: t.to(dev, copy=True), params)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    with _RecordRoutes() as routes:
+        loss, _, grads = value_and_grad(get_model(cfg).loss_fn, params, batch, cfg)
+    opt = adamw(1e-2, eps=TRAIN_CHECK_EPS)
+    new, _, metrics = make_train_step(cfg, opt)(params, opt.init(params), batch, 0)
+    return {"loss": loss, "grads": flatten(grads), "params": flatten(new),
+            "step_loss": metrics["loss"], "routes": routes.rounds}
+
+
+def _train_reduced(arch: str) -> dict:
+    """One reduced (f32) architecture's train step on the card against the
+    CPU: the same numpy parameters and batch (B = 2, T = 16)."""
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data import synthetic
+
+    cfg = get_reduced_config(arch)
+    params = _np_lm_params(cfg)
+    batch = synthetic.batch_for(cfg, (2, 16), 0, 0, device="cpu")
+    cpu = _train_run(cfg, params, batch, "cpu")
+    card = _train_run(cfg, params, batch, "cuda")
+    tol = TOL["f32"]
+    checks = {"loss": _lm_err(card["loss"], cpu["loss"], *tol),
+              "step loss": _lm_err(card["step_loss"], cpu["step_loss"], *tol)}
+    grad_errs = {k: _lm_err(g, cpu["grads"][k], *tol) for k, g in card["grads"].items()}
+    param_errs = {k: _lm_err(p, cpu["params"][k], *tol) for k, p in card["params"].items()}
+    checks["grads"] = (max(e for e, _ in grad_errs.values()),
+                       all(ok for _, ok in grad_errs.values()))
+    checks["params after the step"] = (max(e for e, _ in param_errs.values()),
+                                       all(ok for _, ok in param_errs.values()))
+    if cfg.num_experts:
+        checks["routing"] = _routes_agree(card["routes"], cpu["routes"])
+    return {"phase": "train", "arch": arch, "config": "reduced f32", "family": cfg.family,
+            "device": str(card["loss"].device), "grad_leaves": len(card["grads"]),
+            "microbatches": cfg.microbatches_train, "routing_rounds": len(card["routes"]),
+            "max_abs_err": {k: e for k, (e, _) in checks.items()},
+            "failed": [k for k, (_, ok) in checks.items() if not ok]
+            + [f"grad {k}" for k, (_, ok) in grad_errs.items() if not ok]}
+
+
+def _cosine(a: dict, b: dict) -> tuple[float, float]:
+    """(cosine similarity of two trees as flat vectors, |a| / |b|), in f64."""
+    dot = sum(float((a[k].double() * b[k].double()).sum()) for k in b)
+    na = math.sqrt(sum(float(a[k].double().square().sum()) for k in b))
+    nb = math.sqrt(sum(float(b[k].double().square().sum()) for k in b))
+    return dot / max(na * nb, 1e-300), na / max(nb, 1e-300)
+
+
+def _peak_gb(fn) -> tuple[object, float]:
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _train_full(smi: str) -> dict:
+    """qwen2-1.5b at its published config trained on the card at the JAX
+    launcher's defaults: checks of remat, microbatches and bf16 against an
+    f32 twin on the step-0 gradient, then TRAIN_STEPS steps of
+    ``launch.train.build``'s AdamW on one repeated batch, timed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.launch.train import build
+    from repro_torch.models.model_api import flatten, get_model, init_params
+    from repro_torch.roofline import hw
+    from repro_torch.training.optimizers import adamw
+    from repro_torch.training.train_step import make_train_step, value_and_grad
+
+    cfg = get_config("qwen2-1.5b")
+    torch.cuda.empty_cache()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    batch = synthetic.batch_for(cfg, (TRAIN_BATCH, TRAIN_SEQ), 0, 0, device="cuda")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    param_bytes = sum(t.numel() * t.element_size() for t in flatten(params).values())
+    rec = {"phase": "train", "arch": cfg.name, "config": "published", "card": smi,
+           "n_params": cfg.n_params(), "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "remat": cfg.remat, "optimizer": cfg.optimizer, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "lr": TRAIN_LR, "param_gb": param_bytes / 1e9, "failed": []}
+
+    def grads_of(c):
+        return value_and_grad(get_model(c).loss_fn, params, batch, c)
+
+    value_and_grad(get_model(cfg).loss_fn, params, batch, cfg)  # warm-up (cuBLAS, allocator)
+    (loss0, _, g_full), rec["grad_peak_gb_remat_full"] = _peak_gb(lambda: grads_of(cfg))
+    g_full = flatten(g_full)
+    (_, _, g_none), rec["grad_peak_gb_remat_none"] = _peak_gb(
+        lambda: grads_of(dataclasses.replace(cfg, remat="none")))
+    g_none = flatten(g_none)
+    errs = {k: float((g_full[k].float() - g_none[k].float()).abs().max()) for k in g_none}
+    bad = [k for k in g_none if errs[k] > TRAIN_REMAT_TOL * float(g_none[k].abs().max())]
+    rec["remat_full_vs_none"] = {"max_abs_err": max(errs.values()), "tol": TRAIN_REMAT_TOL,
+                                 "bitwise": all(torch.equal(g_full[k], g_none[k])
+                                                for k in g_none), "leaves_out": bad}
+    if bad:
+        rec["failed"].append("remat full vs none")
+    del g_none
+    _, _, g_f32 = grads_of(dataclasses.replace(cfg, dtype="float32"))
+    cos, ratio = _cosine(g_full, flatten(g_f32))
+    del g_f32
+    rec["bf16_vs_f32_grad"] = {"cosine": cos, "norm_ratio": ratio, "min_cosine": TRAIN_BF16_COS,
+                               "norm_band": list(TRAIN_BF16_NORM)}
+    if not (cos >= TRAIN_BF16_COS and TRAIN_BF16_NORM[0] <= ratio <= TRAIN_BF16_NORM[1]):
+        rec["failed"].append("bf16 vs f32 gradient")
+    rec["loss0"] = float(loss0)
+    lnv = math.log(cfg.padded_vocab())
+    if not 0.5 * lnv <= rec["loss0"] <= 1.5 * lnv:
+        rec["failed"].append("step-0 loss outside 0.5-1.5 x ln(padded vocab)")
+    del g_full
+
+    # microbatches 2 against 1: one constant-rate AdamW step from the same
+    # parameters (the schedule's rate at step 0 is 0)
+    steps, before = {}, flatten(params)
+    for m in (1, 2):
+        p = _tree_clone(params)
+        opt = adamw(TRAIN_LR)
+        new, state, metrics = make_train_step(dataclasses.replace(cfg, microbatches_train=m),
+                                              opt)(p, opt.init(p), batch, 0)
+        steps[m] = (float(metrics["loss"]), {k: v - before[k] for k, v in flatten(new).items()})
+        del new, state, p
+    (l1, d1), (l2, d2) = steps[1], steps[2]
+    cos_mb, _ = _cosine(d2, d1)
+    rec["microbatches_2_vs_1"] = {
+        "loss": [l1, l2], "loss_rel_err": abs(l2 - l1) / abs(l1), "update_cosine": cos_mb,
+        "update_max_abs_err": max(float((d2[k] - d1[k]).abs().max()) for k in d1),
+        "loss_rtol": TRAIN_MB_LOSS_RTOL, "min_cosine": TRAIN_MB_COS}
+    if not (abs(l2 - l1) <= TRAIN_MB_LOSS_RTOL * abs(l1) and cos_mb >= TRAIN_MB_COS):
+        rec["failed"].append("microbatches 2 vs 1")
+    del steps, d1, d2, before
+
+    # TRAIN_STEPS steps of the launcher's optimizer and step on one batch
+    opt, stepfn = build(cfg, TRAIN_LR, TRAIN_STEPS)
+    opt_state = opt.init(params)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, metrics = stepfn(params, opt_state, batch, step)
+        end.record()
+        losses.append(float(metrics["loss"]))  # synchronizes
+        times.append(start.elapsed_time(end))
+    rec["peak_gb_remat_full"] = torch.cuda.max_memory_allocated() / 1e9
+    # one more step without remat (the same state, step 10): its peak
+    _, rec["peak_gb_remat_none"] = _peak_gb(lambda: make_train_step(
+        dataclasses.replace(cfg, remat="none"), opt)(params, opt_state, batch, TRAIN_STEPS))
+    step_ms = statistics.median(times[-5:])
+    flops = 8 * cfg.n_params() * tokens  # forward, its remat recompute, backward
+    nbytes = 7 * param_bytes  # AdamW: p, g, m, v read; p, m, v written
+    bound_ms = 1e3 * flops / hw.PEAK_FLOPS_BF16 + 1e3 * nbytes / hw.HBM_BW
+    rec.update({"losses": losses, "step_ms": step_ms, "step_ms_all": times,
+                "tok_per_s": 1e3 * tokens / step_ms, "bound_ms": bound_ms,
+                "bound_flops": flops, "bound_bytes": nbytes, "over_bound": step_ms / bound_ms})
+    if not losses[-1] < losses[0]:
+        rec["failed"].append("last loss not below the first")
+    if not all(math.isfinite(x) for x in losses):
+        rec["failed"].append("non-finite loss")
+    if max(rec["peak_gb_remat_full"], rec["peak_gb_remat_none"]) >= hw.HBM_BYTES / 1e9:
+        rec["failed"].append("peak memory at or above 80 GB")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tree_clone(tree: dict) -> dict:
+    return {k: _tree_clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _launcher_lines(module: str, *args: str) -> list[dict]:
+    """Run ``python -m module args`` on the card; its JSON stdout lines."""
+    return [json.loads(s) for s in _launcher_stdout(module, *args).splitlines()
+            if s.startswith("{")]
+
+
+def _train_launcher(smi: str) -> list[dict]:
+    """The launcher's fault drill against a clean run (reduced qwen2-1.5b,
+    checkpoints under chiprun_out/), then one full-width run without a
+    checkpoint directory."""
+    import shutil
+
+    recs = []
+    dirs = {name: OUT_DIR / f"train_{name}" for name in ("drill", "clean")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    drill = _launcher_lines("repro_torch.launch.train", *DRILL_ARGS, "--ckpt-dir",
+                            str(dirs["drill"]), "--inject-failure", "17")
+    clean = _launcher_lines("repro_torch.launch.train", *DRILL_ARGS, "--ckpt-dir",
+                            str(dirs["clean"]))
+    kept = sorted(p.name for p in dirs["drill"].iterdir())
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    gap = abs(drill[-1]["loss"] - clean[-1]["loss"])
+    rec = {"phase": "train", "module": "launch.train", "run": "fault drill",
+           "drill": drill, "clean_final": clean[-1], "loss_gap_step_30": gap,
+           "checkpoints_kept": kept, "failed": []}
+    if not (drill[-1]["step"] == clean[-1]["step"] == 30 and gap < 1e-4):
+        rec["failed"].append("fault drill step-30 loss")
+    if [list(r) for r in drill] != [["step", "loss", "sec"]] * len(drill):
+        rec["failed"].append("launcher JSON keys")
+    recs.append(rec)
+    emit(rec)
+    full = _launcher_lines("repro_torch.launch.train", "--arch", "qwen2-1.5b", "--steps",
+                           str(LAUNCH_TRAIN_STEPS), "--log-every", "1")
+    secs = [r["sec"] for r in full[-10:]]
+    rec = {"phase": "train", "module": "launch.train", "run": "qwen2-1.5b published",
+           "card": smi, "steps": len(full), "losses": [r["loss"] for r in full],
+           "median_step_s_last_10": statistics.median(secs),
+           "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / statistics.median(secs),
+           "checkpoint_save_s": "not measured (no --ckpt-dir: ~25 GB a save)", "failed": []}
+    if len(full) != LAUNCH_TRAIN_STEPS or not all(math.isfinite(r["loss"]) for r in full):
+        rec["failed"].append("launcher run")
+    recs.append(rec)
+    emit(rec)
+    return recs
+
+
+def phase_train(smi: str) -> list[dict]:
+    """The ten reduced architectures' train step on the card against the
+    CPU, qwen2-1.5b trained at its published config, and the launcher."""
+    from repro_torch.configs.base import ARCH_IDS
+
+    recs = []
+    for arch in ARCH_IDS:
+        recs.append(_train_reduced(arch))
+        emit(recs[-1])
+    recs.append(_train_full(smi))
+    emit(recs[-1])
+    recs += _train_launcher(smi)
+    bad = {(r.get("arch") or r.get("run")) + " " + r.get("config", ""): r["failed"]
+           for r in recs if r["failed"]}
+    if bad:
+        fail(f"phase train: {bad}")
+    return recs
+
+
+def _launcher_stdout(module: str, *args: str) -> str:
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run(
         [sys.executable, "-m", module, *args],
@@ -2999,7 +3318,14 @@ def _run_launcher(module: str, *args: str, whole: bool = False) -> dict:
     )
     if proc.returncode != 0:
         fail(f"{module} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout if whole else proc.stdout.strip().splitlines()[-1])
+    return proc.stdout
+
+
+def _run_launcher(module: str, *args: str, whole: bool = False) -> dict:
+    """Run ``python -m module args`` on the card; its last stdout line (its
+    whole stdout with ``whole``: krr_serve prints indented JSON)."""
+    out = _launcher_stdout(module, *args)
+    return json.loads(out if whole else out.strip().splitlines()[-1])
 
 
 def phase_launch() -> dict:
@@ -3097,6 +3423,7 @@ def main() -> int:
     rows = phase_time(launches, tuple(tune_result.best["weights"]),
                       _tune_weight_cols(tune_result), baseline_recs)
     phase_lm(smi)
+    phase_train(smi)
     phase_launch()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{k: r[k] for k in (

@@ -15,6 +15,7 @@ def config() -> ArchConfig:
         num_layers=28, d_model=4096, num_heads=32, num_kv_heads=2,
         d_ff=13696, vocab_size=65024, rope_fraction=0.5, tie_embeddings=False,
         dtype="bfloat16", param_dtype="float32",
+        optimizer="adamw", remat="full", microbatches_train=1,
         source="arXiv:2406.12793; hf",
     )
 
@@ -23,4 +24,5 @@ def reduced() -> ArchConfig:
     return dataclasses.replace(
         config(), num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
         d_ff=128, vocab_size=256, dtype="float32",
+        remat="none",
     )

@@ -17,6 +17,8 @@ def config() -> ArchConfig:
         num_layers=64, d_model=12288, num_heads=96, num_kv_heads=8,
         d_ff=33792, vocab_size=256000, tie_embeddings=False,
         dtype="bfloat16", param_dtype="bfloat16",
+        optimizer="adafactor", remat="full", microbatches_train=4,
+        grad_accum_dtype="bfloat16",
         source="hf:CohereForAI/c4ai-command-r-v01; unverified",
     )
 
@@ -25,4 +27,5 @@ def reduced() -> ArchConfig:
     return dataclasses.replace(
         config(), num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
         d_ff=128, vocab_size=256, dtype="float32", param_dtype="float32",
+        remat="none", microbatches_train=1, grad_accum_dtype="float32",
     )

@@ -17,6 +17,7 @@ def config() -> ArchConfig:
         d_ff=1408, vocab_size=102400, num_experts=64, top_k=6,
         num_shared_experts=2, tie_embeddings=False,
         dtype="bfloat16", param_dtype="float32",
+        optimizer="adamw", remat="full", microbatches_train=2,
         source="arXiv:2401.06066; hf",
     )
 
@@ -26,4 +27,5 @@ def reduced() -> ArchConfig:
         config(), num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
         d_ff=32, vocab_size=256, num_experts=8, top_k=2, num_shared_experts=1,
         dtype="float32",
+        remat="none", microbatches_train=1,
     )

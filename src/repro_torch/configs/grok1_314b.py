@@ -17,6 +17,8 @@ def config() -> ArchConfig:
         d_ff=32768, vocab_size=131072, num_experts=8, top_k=2,
         tie_embeddings=False,
         dtype="bfloat16", param_dtype="bfloat16",
+        optimizer="adafactor", remat="full", microbatches_train=8,
+        grad_accum_dtype="bfloat16",
         source="hf:xai-org/grok-1; unverified",
     )
 
@@ -26,4 +28,5 @@ def reduced() -> ArchConfig:
         config(), num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
         d_ff=96, vocab_size=256, num_experts=4, top_k=2, dtype="float32",
         param_dtype="float32",
+        remat="none", microbatches_train=1, grad_accum_dtype="float32",
     )

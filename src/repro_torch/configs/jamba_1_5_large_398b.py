@@ -20,6 +20,8 @@ def config() -> ArchConfig:
         attn_period=8, moe_every=2, d_state=16, ssm_expand=2, ssm_conv=4,
         rope_fraction=0.0, tie_embeddings=False,
         dtype="bfloat16", param_dtype="bfloat16", sub_quadratic=True,
+        optimizer="adafactor", remat="full", microbatches_train=8,
+        grad_accum_dtype="bfloat16",
         source="arXiv:2403.19887; hf",
     )
 
@@ -29,4 +31,5 @@ def reduced() -> ArchConfig:
         config(), num_layers=4, d_model=64, num_heads=4, num_kv_heads=2,
         d_ff=96, vocab_size=256, num_experts=4, top_k=2, attn_period=4,
         d_state=8, dtype="float32", param_dtype="float32",
+        remat="none", microbatches_train=1, grad_accum_dtype="float32",
     )

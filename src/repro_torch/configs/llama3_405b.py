@@ -20,6 +20,8 @@ def config() -> ArchConfig:
         num_layers=126, d_model=16384, num_heads=128, num_kv_heads=8,
         d_ff=53248, vocab_size=128256, tie_embeddings=False,
         dtype="bfloat16", param_dtype="bfloat16",
+        optimizer="adafactor", remat="full", microbatches_train=16,
+        grad_accum_dtype="bfloat16",
         source="arXiv:2407.21783; unverified",
     )
 
@@ -28,4 +30,5 @@ def reduced() -> ArchConfig:
     return dataclasses.replace(
         config(), num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
         d_ff=128, vocab_size=256, dtype="float32", param_dtype="float32",
+        remat="none", microbatches_train=1, grad_accum_dtype="float32",
     )

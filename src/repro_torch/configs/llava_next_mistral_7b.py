@@ -18,6 +18,7 @@ def config() -> ArchConfig:
         d_ff=14336, vocab_size=32000, num_prefix_tokens=2880,
         tie_embeddings=False,
         dtype="bfloat16", param_dtype="float32",
+        optimizer="adamw", remat="full", microbatches_train=2,
         source="hf:llava-hf/llava-v1.6-mistral-7b-hf; unverified",
     )
 
@@ -26,4 +27,5 @@ def reduced() -> ArchConfig:
     return dataclasses.replace(
         config(), num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
         d_ff=128, vocab_size=256, num_prefix_tokens=8, dtype="float32",
+        remat="none", microbatches_train=1,
     )

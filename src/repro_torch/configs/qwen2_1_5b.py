@@ -15,6 +15,7 @@ def config() -> ArchConfig:
         num_layers=28, d_model=1536, num_heads=12, num_kv_heads=2,
         d_ff=8960, vocab_size=151936, qkv_bias=True, tie_embeddings=True,
         dtype="bfloat16", param_dtype="float32",
+        optimizer="adamw", remat="full", microbatches_train=1,
         source="arXiv:2407.10671; hf",
     )
 
@@ -23,4 +24,5 @@ def reduced() -> ArchConfig:
     return dataclasses.replace(
         config(), num_layers=2, d_model=96, num_heads=6, num_kv_heads=2,
         d_ff=192, vocab_size=256, dtype="float32",
+        remat="none",
     )

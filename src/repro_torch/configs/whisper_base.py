@@ -19,6 +19,7 @@ def config() -> ArchConfig:
         num_kv_heads=8, d_ff=2048, vocab_size=51865,
         norm="layernorm", mlp_act="gelu", tie_embeddings=True,
         dtype="bfloat16", param_dtype="float32",
+        optimizer="adamw", remat="full", microbatches_train=1,
         source="arXiv:2212.04356; unverified",
     )
 
@@ -27,4 +28,5 @@ def reduced() -> ArchConfig:
     return dataclasses.replace(
         config(), num_layers=2, encoder_layers=2, d_model=64, num_heads=4,
         num_kv_heads=4, d_ff=128, vocab_size=256, dtype="float32",
+        remat="none",
     )

@@ -5,7 +5,8 @@ The reference hands over numpy arrays (``np.asarray(out.w)``), plain dicts
 them on a device as the port's containers, so both packages predict, report
 residuals and refit from the same weights, the same tuned model and the
 same divide-and-conquer model; ``lm_params_from_reference`` carries an LM
-parameter tree across by its dotted paths.
+parameter tree across by its dotted paths, and ``train_state_from_reference``
+a training state (parameters and optimizer tree).
 """
 
 from __future__ import annotations
@@ -139,3 +140,29 @@ def lm_params_from_reference(params: dict, cfg, *, device="cuda") -> dict:
         raise ValueError(f"{cfg.name}: shapes (got, want) {bad}")
     dtype = cfg.parameter_dtype()
     return unflatten({p: _leaf_tensor(flat[p]).to(device=dev, dtype=dtype) for p in defs})
+
+
+def train_state_from_reference(params: dict, opt_state: dict, cfg, optimizer_name: str, *,
+                               device="cuda") -> tuple[dict, dict]:
+    """The JAX package's training state (its parameter tree and the state
+    tree of its ``optimizer_name`` optimizer, as numpy:
+    ``jax.tree.map(np.asarray, ...)``) as the port's ``(params,
+    opt_state)`` on ``device``: parameters as ``lm_params_from_reference``
+    gives them, each optimizer leaf in its own dtype (bf16 through its
+    bits).  Raises ``ValueError`` where the optimizer tree's paths or shapes
+    differ from what the port's optimizer would hold for ``cfg``."""
+    from repro_torch.models.model_api import abstract_params, flatten, unflatten
+    from repro_torch.training.optimizers import make_optimizer
+
+    dev = resolve_device(device)
+    want = flatten(make_optimizer(optimizer_name, 0.0).init(abstract_params(cfg)))
+    flat = flatten(opt_state)
+    if sorted(flat) != sorted(want):
+        raise ValueError(f"{cfg.name} {optimizer_name}: state paths missing "
+                         f"{sorted(set(want) - set(flat))}, extra {sorted(set(flat) - set(want))}")
+    bad = {p: (tuple(np.shape(flat[p])), tuple(t.shape)) for p, t in want.items()
+           if tuple(np.shape(flat[p])) != tuple(t.shape)}
+    if bad:
+        raise ValueError(f"{cfg.name} {optimizer_name}: state shapes (got, want) {bad}")
+    state = unflatten({p: _leaf_tensor(flat[p]).to(dev) for p in want})
+    return lm_params_from_reference(params, cfg, device=dev), state

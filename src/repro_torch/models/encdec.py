@@ -7,11 +7,14 @@ the fly.  Encoder: bidirectional self-attention + GELU (tanh) MLP, pre-
 LayerNorm.  Decoder: causal self-attention + cross-attention over the
 encoder output + GELU MLP.  The decode step carries a self-attention KV
 cache (written in place) plus the fixed cross K/V computed at prefill,
-masked to ``cross_len``.  Whisper ties embedding and LM head.
+masked to ``cross_len``.  Whisper ties embedding and LM head.  Encoder and
+decoder blocks run rematerialized when autograd records and ``cfg.remat``
+is not "none" ("dots" saves nothing here either, as in the reference).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -132,10 +135,15 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, T, d) precomputed frame embeddings (frontend stub)."""
     x = frames.to(cfg.activation_dtype())
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    block = L.remat(cfg, functools.partial(_enc_block, cfg), dots=False)
     for lp in stacked(params["encoder"], cfg.encoder_layers):
-        x, _ = _self_attn(cfg, x, lp, causal=False)
-        x = x + _mlp(_ln(x, lp, "lnm"), lp)
+        x = block(x, lp)
     return L.layer_norm(x, params["enc_final_scale"], params["enc_final_bias"])
+
+
+def _enc_block(cfg, x, lp):
+    x, _ = _self_attn(cfg, x, lp, causal=False)
+    return x + _mlp(_ln(x, lp, "lnm"), lp)
 
 
 def _cross_kv(cfg, params, enc_out):
@@ -158,13 +166,18 @@ def _dec_logits(params, x):
 
 def _decoder(cfg, params, x, xk, xv):
     """The decoder stack over a full sequence; returns (x, self K/V per layer)."""
+    block = L.remat(cfg, functools.partial(_dec_block, cfg), dots=False)
     kvs = []
     for lp, ek, ev in zip(stacked(params["decoder"], cfg.num_layers), xk, xv):
-        x, kv = _self_attn(cfg, x, lp, causal=True)
-        x = _cross_attn(cfg, x, ek, ev, lp)
-        x = x + _mlp(_ln(x, lp, "lnm"), lp)
+        x, kv = block(x, lp, ek, ev)
         kvs.append(kv)
     return x, kvs
+
+
+def _dec_block(cfg, x, lp, ek, ev):
+    x, kv = _self_attn(cfg, x, lp, causal=True)
+    x = _cross_attn(cfg, x, ek, ev, lp)
+    return x + _mlp(_ln(x, lp, "lnm"), lp), kv
 
 
 def decode_train(cfg, params, tokens, enc_out):

@@ -9,10 +9,13 @@ rest Mamba — each followed by an FFN that alternates dense MLP / MoE.
 Attention uses NO positional encoding (rope_fraction=0): the Mamba layers
 carry position.  Prefill zeroes the Mamba decode states, as the reference
 does on purpose (``repro.models.hybrid.prefill``); decode writes every state
-and the new K/V into the cache tensors in place.
+and the new K/V into the cache tensors in place.  Each period runs under
+``cfg.remat`` when autograd records (``layers.remat``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -164,9 +167,10 @@ def _logits(cfg, params, x):
 
 
 def _trunk(cfg, params, x):
+    period = L.remat(cfg, functools.partial(_period_train, cfg))
     kvs = []
     for pp in stacked(params["layers"], _periods(cfg)):
-        x, kv = _period_train(cfg, x, pp)
+        x, kv = period(x, pp)
         kvs.append(kv)
     return x, kvs
 

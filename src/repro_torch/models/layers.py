@@ -11,18 +11,87 @@ inputs: each product is exact in f32 and the sum accumulates in f32.
 
 Attention is q-chunked (exact): scores are materialized per (query chunk x
 full key length) tile.  The reference's ``logical_constraint`` sharding
-hints and per-chunk ``jax.checkpoint`` have no effect on one device and in
-a forward without gradients, so they are dropped.
+hints have no effect on one device and are dropped.
+
+Remat.  Where autograd records (``recording``), the reference's
+``jax.checkpoint`` sites become ``torch.utils.checkpoint`` (non-reentrant):
+each attention query chunk and each MoE routing round when there are
+several, and, through ``remat``, a family's block under ``cfg.remat``
+("full" saves nothing, "dots" saves the outputs of products without batch
+dims: ``aten.mm`` / ``aten.addmm``; the attention and expert products run
+as ``bmm`` and are recomputed).  A forward that records nothing (serving)
+runs the same ops without them.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models.model_api import ArchConfig
 
 NEG_INF = -1e30  # masked scores (the reference's, not -inf)
+
+# ----------------------------------------------------------------------------
+# remat
+# ----------------------------------------------------------------------------
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
+
+
+def recording(*args) -> bool:
+    """True when autograd records a use of any tensor in ``args`` (nested
+    dicts, lists and tuples searched)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(args))
+
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of products
+    without batch dims, recompute everything else."""
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(fn, *args, policy: str = "full"):
+    """``fn(*args)``, rematerialized in the backward when autograd records
+    it: ``policy`` "full" saves nothing inside ``fn``, "dots" the
+    batch-free products."""
+    if not recording(*args):
+        return fn(*args)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def remat(cfg: ArchConfig, fn, *, dots: bool = True):
+    """``fn`` under ``cfg.remat`` (the reference's per-family ``_remat``):
+    as is for "none"; ``dots=False`` runs "dots" as "full" (encdec's
+    choice)."""
+    if cfg.remat == "none":
+        return fn
+    policy = "dots" if cfg.remat == "dots" and dots else "full"
+    return functools.partial(checkpointed, fn, policy=policy)
 
 # ----------------------------------------------------------------------------
 # norms
@@ -132,7 +201,9 @@ def attention(
     if t <= q_chunk:
         return one_chunk(q, q_offset)
     assert t % q_chunk == 0, (t, q_chunk)
-    return torch.cat([one_chunk(q[:, i:i + q_chunk], q_offset + i)
+    # each chunk rematerialized: a backward would otherwise keep every
+    # chunk's masks and probabilities
+    return torch.cat([checkpointed(one_chunk, q[:, i:i + q_chunk], q_offset + i)
                       for i in range(0, t, q_chunk)], dim=1)
 
 
@@ -296,7 +367,10 @@ def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict, prefix: str = "moe_") -> 
     if nchunks == 1:
         out = route_chunk(xf)
     else:
-        out = torch.cat([route_chunk(xc) for xc in xf.reshape(nchunks, chunk, d)], dim=0)
+        # each routing round rematerialized: a backward would otherwise keep
+        # every round's (E*C, d) dispatch buffers
+        out = torch.cat([checkpointed(route_chunk, xc)
+                         for xc in xf.reshape(nchunks, chunk, d)], dim=0)
 
     if cfg.num_shared_experts:
         shared = mlp(cfg, x, p, prefix=f"{prefix}shared_")

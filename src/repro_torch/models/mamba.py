@@ -6,8 +6,9 @@ data-dependent (dt, B, C); selective scan
     h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t,   y_t = C_t . h_t + D * x_t
 then y * SiLU(z) -> out_proj.  Decode state is (B, d_inner, d_state) + a
 (conv-1)-token conv buffer: O(1) in sequence length.  The scan is a Python
-loop over time (the reference's chunked ``lax.scan`` only checkpoints for
-gradients).
+loop over time; a sequence of more than ``TIME_CHUNK`` steps (and a
+multiple of it) runs in chunks, each rematerialized in the backward where
+autograd records, as the reference's chunked ``lax.scan`` does.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers as L
 from repro_torch.models.model_api import ArchConfig, ParamDefs
 
 
@@ -58,10 +60,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y, xx[:, -(k - 1):, :]
 
 
-def _ssm_scan(x_act, dt, bmat, cmat, a, h0):
-    """Selective scan.  x_act/dt: (B,T,di); bmat/cmat: (B,T,ds); a: (di,ds);
-    h0: (B,di,ds).  Returns y (B,T,di) f32, h_T."""
-    h = h0
+TIME_CHUNK = 64  # remat granularity of the selective scan (the reference's)
+
+
+def _ssm_steps(x_act, dt, bmat, cmat, a, h):
     ys = []
     for i in range(x_act.shape[1]):
         x_t, dt_t, b_t, c_t = x_act[:, i], dt[:, i], bmat[:, i], cmat[:, i]
@@ -69,6 +71,21 @@ def _ssm_scan(x_act, dt, bmat, cmat, a, h0):
         h = da * h + (dt_t * x_t)[..., None] * b_t[:, None, :]
         ys.append(torch.einsum("bds,bs->bd", h, c_t))
     return torch.stack(ys, dim=1), h
+
+
+def _ssm_scan(x_act, dt, bmat, cmat, a, h0):
+    """Selective scan.  x_act/dt: (B,T,di); bmat/cmat: (B,T,ds); a: (di,ds);
+    h0: (B,di,ds).  Returns y (B,T,di) f32, h_T."""
+    t = x_act.shape[1]
+    if t <= TIME_CHUNK or t % TIME_CHUNK != 0:
+        return _ssm_steps(x_act, dt, bmat, cmat, a, h0)
+    h, ys = h0, []
+    for c in range(0, t, TIME_CHUNK):
+        part = slice(c, c + TIME_CHUNK)
+        y, h = L.checkpointed(_ssm_steps, x_act[:, part], dt[:, part], bmat[:, part],
+                              cmat[:, part], a, h)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
 
 
 def mamba_forward(cfg: ArchConfig, x: torch.Tensor, p: dict,

@@ -72,10 +72,15 @@ class ArchConfig:
     encoder_layers: int = 0
     num_prefix_tokens: int = 0  # VLM patches / audio frames fed as embeddings
     tie_embeddings: bool = True
-    # numerics (the JAX package's training and mesh knobs are left out: no
-    # code of the port reads them)
+    # numerics & training knobs (per arch, the JAX package's values; its mesh
+    # knobs residual_shard, fsdp_over_pod and scan_unroll wait for the
+    # dry-run slice, which maps logical axes onto devices)
     dtype: str = "bfloat16"  # activation/compute dtype
     param_dtype: str = "float32"
+    optimizer: str = "adamw"  # adamw | adafactor | sgdm
+    remat: str = "full"  # full | dots | none (recompute under autograd only)
+    microbatches_train: int = 1
+    grad_accum_dtype: str = "float32"  # microbatch gradient accumulator dtype
     attn_q_chunk: int = 512  # query-chunk size for exact tiled attention
     moe_dispatch_tokens: int = 32_768  # tokens per MoE routing round
     moe_combine_dtype: str = "auto"  # "auto" (= activation dtype) | "float32"
@@ -256,8 +261,14 @@ def param_pspecs(cfg: ArchConfig) -> dict:
 
 def stacked(tree: dict, n: int) -> list[dict]:
     """The n slices of a dict of tensors stacked on a leading axis (views):
-    the Python loop that stands in for the reference's ``lax.scan`` over it."""
-    return [{k: v[i] for k, v in tree.items()} for i in range(n)]
+    the Python loop that stands in for the reference's ``lax.scan`` over it.
+    ``torch.unbind`` makes the slices: under autograd its one backward
+    stacks the n slice gradients once, where n ``v[i]`` would each write a
+    zero-filled gradient the size of the whole stack."""
+    cols = {k: torch.unbind(v) for k, v in tree.items()}
+    for k, c in cols.items():
+        assert len(c) == n, (k, len(c), n)
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def cache_tensors(shapes: dict[str, tuple], dtype, seq: int, abstract: bool, device,

@@ -12,14 +12,18 @@ Time-mix (heads H, head dim e):
     S_t = diag(w_t) S_{t-1} + k_t^T v_t
     out = W_o (GroupNorm_head(y) * silu(g))
 
-The recurrence is a Python loop over time (the reference's ``lax.scan``; its
-``TIME_CHUNK`` checkpointing only matters for gradients, so it is dropped
-with the sharding hints and remat).  ``decode_step`` writes the new states
-into the cache tensors in place.
+The recurrence is a Python loop over time (the reference's ``lax.scan``).
+A sequence of more than ``TIME_CHUNK`` steps (and a multiple of it) runs in
+chunks, each rematerialized in the backward where autograd records, as the
+reference's are: a backward would otherwise keep the (B, H, e, e) state of
+every step.
+Each block runs under ``cfg.remat`` (``layers.remat``).  ``decode_step``
+writes the new states into the cache tensors in place.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -118,10 +122,10 @@ def _group_norm(y, scale, bias, h):
     return yn * scale.float() + bias.float()
 
 
-def _wkv_scan(r, k, v, w, u, s0):
-    """The RWKV6 recurrence.  r,k,v: (B,T,H,e); w: (B,T,H,e) decay in (0,1);
-    u: (H,e); s0: (B,H,e,e).  Returns y (B,T,H,e), s_T."""
-    s = s0
+TIME_CHUNK = 64  # remat granularity of the time scan (the reference's)
+
+
+def _wkv_steps(r, k, v, w, u, s):
     ys = []
     for i in range(r.shape[1]):
         r_t, k_t, v_t, w_t = r[:, i], k[:, i], v[:, i], w[:, i]  # (B,H,e)
@@ -129,6 +133,20 @@ def _wkv_scan(r, k, v, w, u, s0):
         ys.append(torch.einsum("bhi,bhij->bhj", r_t, s + u[None, :, :, None] * kv))
         s = w_t[..., :, None] * s + kv
     return torch.stack(ys, dim=1), s
+
+
+def _wkv_scan(r, k, v, w, u, s0):
+    """The RWKV6 recurrence.  r,k,v: (B,T,H,e); w: (B,T,H,e) decay in (0,1);
+    u: (H,e); s0: (B,H,e,e).  Returns y (B,T,H,e), s_T."""
+    t = r.shape[1]
+    if t <= TIME_CHUNK or t % TIME_CHUNK != 0:
+        return _wkv_steps(r, k, v, w, u, s0)
+    s, ys = s0, []
+    for c in range(0, t, TIME_CHUNK):
+        part = slice(c, c + TIME_CHUNK)
+        y, s = L.checkpointed(_wkv_steps, r[:, part], k[:, part], v[:, part], w[:, part], u, s)
+        ys.append(y)
+    return torch.cat(ys, dim=1), s
 
 
 def _time_mix(cfg, x, xprev, lp, s0):
@@ -184,9 +202,10 @@ def _trunk(cfg, params, x):
     h = _heads(cfg)
     s0 = torch.zeros((x.shape[0], h, HEAD_DIM, HEAD_DIM), dtype=torch.float32,
                      device=x.device)
+    block = L.remat(cfg, functools.partial(_block, cfg))
     states = []
     for lp in stacked(params["layers"], cfg.num_layers):
-        x, s_t, tm_last, cm_last = _block(cfg, x, lp, s0)
+        x, s_t, tm_last, cm_last = block(x, lp, s0)
         states.append((s_t, tm_last, cm_last))
     return x, states
 

@@ -8,8 +8,8 @@ patch embeddings prepended to the token sequence).
 Structure: embedding -> a Python loop over L identical blocks (params
 stacked on a leading L axis; the reference's ``lax.scan``) -> final norm ->
 tied (or separate) LM head.  The reference's ``logical_constraint`` sharding
-hints and ``_remat`` policies do nothing on one device and in a forward
-without gradients, so they are dropped (remat arrives with training).
+hints do nothing on one device and are dropped; its ``_remat`` policy wraps
+each block when autograd records (``layers.remat``).
 
 ``decode_step`` writes the new token's K/V into the cache tensors in place
 (the counterpart of the reference's donated cache): the returned cache holds
@@ -18,6 +18,7 @@ the same ``k`` / ``v`` tensors and ``pos + 1``.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -182,9 +183,10 @@ def _assemble_sequence(cfg, params, batch) -> torch.Tensor:
 
 def _trunk(cfg: ArchConfig, params: dict, x: torch.Tensor, collect_kv: bool = False):
     positions = torch.arange(x.shape[1], device=x.device)
+    block = L.remat(cfg, functools.partial(_block_prefill, cfg))
     ks, vs = [], []
     for lp in stacked(params["layers"], cfg.num_layers):
-        x, k, v = _block_prefill(cfg, x, lp, positions)
+        x, k, v = block(x, lp, positions)
         if collect_kv:
             ks.append(k.to(cfg.activation_dtype()))
             vs.append(v.to(cfg.activation_dtype()))

@@ -6,9 +6,11 @@ on the card against the CPU, a telemetry-enabled solve, the t = 1 sweep
 split over n (its edges, and a row bitwise the same in every serving
 bucket), the serving engine on the card against the engine on the CPU, and
 the distributed tier on meshes of cuda:0 against the same meshes of CPU
-devices, and every reduced LM architecture (loss, prefill, decode, greedy
+devices, every reduced LM architecture (loss, prefill, decode, greedy
 tokens, a decode at a clamped position, the serving launcher) on the card
-against the CPU.
+against the CPU, and LM training (each reduced architecture's train step on
+the card against the CPU, the checkpointer, the data pipeline and the
+launcher's fault drill on the card).
 
 This file imports neither JAX nor the JAX package nor scikit-learn, so it
 runs on a machine with a card and none of them:
@@ -852,7 +854,7 @@ def _recorded_routes():
 
     def recording(xc, router, k):
         gates, experts = route(xc, router, k)
-        rounds.append((xc.cpu(), gates.cpu(), experts.cpu()))
+        rounds.append((xc.detach().cpu(), gates.detach().cpu(), experts.cpu()))
         return gates, experts
 
     with mock.patch.object(layers, "moe_route", recording):
@@ -1003,3 +1005,95 @@ def test_cuda_serve_launcher_reduced(cuda_device, capsys):
                             "sample"]
     assert report["generated_shape"] == [4, 16] and report["tokens"] == 64
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == report
+
+
+# ---------------------------------------------------------------------------
+# LM training: every reduced architecture's train step on the card against
+# the CPU; the checkpointer, the pipeline and the launcher on the card
+# ---------------------------------------------------------------------------
+
+
+def _train_run(cfg, params, batch, dev):
+    from repro_torch.models.model_api import flatten, get_model, tree_map
+    from repro_torch.training.optimizers import adamw
+    from repro_torch.training.train_step import make_train_step, value_and_grad
+
+    params = tree_map(lambda t: t.to(dev, copy=True), params)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    with _recorded_routes() as rounds:
+        loss, _, grads = value_and_grad(get_model(cfg).loss_fn, params, batch, cfg)
+    # eps 1e-3: a first AdamW step at eps 1e-8 moves a weight by ~lr sign(g),
+    # which turns last-digit gradient differences near 0 into lr-sized ones
+    opt = adamw(1e-2, eps=1e-3)
+    new, _, metrics = make_train_step(cfg, opt)(params, opt.init(params), batch, 0)
+    return loss, flatten(grads), flatten(new), metrics, rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_train_step_matches_cpu(cuda_device, arch):
+    """Loss, every gradient leaf and every parameter after one AdamW train
+    step (the config's microbatches) on the card against the CPU, f32
+    tolerance; with experts, every routing round routes alike."""
+    cfg, params, batch = _lm_inputs(arch)
+    c_loss, c_grads, c_new, c_metrics, c_rounds = _train_run(cfg, params, batch, "cpu")
+    g_loss, g_grads, g_new, g_metrics, g_rounds = _train_run(cfg, params, batch, cuda_device)
+    assert g_loss.device.type == "cuda"
+    _lm_close(g_loss, c_loss, cfg, "loss")
+    _lm_close(g_metrics["loss"], c_metrics["loss"], cfg, "step loss")
+    _lm_close(g_metrics["grad_norm"], c_metrics["grad_norm"], cfg, "grad norm")
+    for k in c_grads:
+        _lm_close(g_grads[k], c_grads[k], cfg, f"grad {k}")
+        _lm_close(g_new[k], c_new[k], cfg, f"param {k} after the step")
+    if cfg.num_experts:
+        _assert_routes_agree(g_rounds, c_rounds)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpointer_round_trip(cuda_device, tmp_path):
+    """f32, bf16 and int leaves saved from the card restore on the card
+    (``device`` defaults to cuda), bitwise and in their dtypes."""
+    from repro_torch.checkpoint import checkpointer
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.randn((64, 32), generator=gen, device=cuda_device)
+    state = {"params": {"w": w, "w_bf16": w.to(torch.bfloat16)},
+             "opt_state": ({"m": w * 2},), "count": torch.tensor(3, device=cuda_device)}
+    checkpointer.save(str(tmp_path), 4, state, extra={"data": {"seed": 0, "step": 4}})
+    back, extra, step = checkpointer.restore(str(tmp_path))
+    assert step == 4 and extra == {"data": {"seed": 0, "step": 4}}
+    for got, want in ((back["params"]["w"], w), (back["params"]["w_bf16"], w.to(torch.bfloat16)),
+                      (back["opt_state"][0]["m"], w * 2), (back["count"], state["count"])):
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_batches_on_the_card_and_resume(cuda_device):
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.data import synthetic
+    from repro_torch.data.pipeline import LMDataPipeline
+
+    cfg = get_reduced_config("llava-next-mistral-7b")
+    pipe = LMDataPipeline(cfg, 4, 16, seed=2)  # the cuda default
+    batches = [next(pipe) for _ in range(3)]
+    for step, b in enumerate(batches):
+        want = synthetic.batch_for(cfg, (4, 16), 2, step, device=cuda_device)
+        assert all(v.device.type == "cuda" and torch.equal(v, want[k]) for k, v in b.items())
+    again = next(LMDataPipeline.from_state(cfg, 4, 16, {"seed": 2, "step": 2}))
+    assert all(torch.equal(again[k], batches[2][k]) for k in again)
+
+
+@pytest.mark.cuda
+def test_cuda_train_launcher_fault_drill(cuda_device, tmp_path, capsys):
+    """The launcher's fault drill on the card (the cuda default): a failure
+    at step 7 restores step 5; the step-10 loss is a clean run's."""
+    from repro_torch.launch import train
+
+    common = ["--arch", "qwen2-1.5b", "--reduced", "--steps", "10", "--batch", "2", "--seq",
+              "8", "--ckpt-every", "5", "--log-every", "5"]
+    drill = train.main(common + ["--ckpt-dir", str(tmp_path / "a"), "--inject-failure", "7"])
+    clean = train.main(common + ["--ckpt-dir", str(tmp_path / "b")])
+    assert drill["final_step"] == clean["final_step"] == 10
+    assert abs(drill["history"][-1]["loss"] - clean["history"][-1]["loss"]) < 1e-4
+    assert "[fault]" in capsys.readouterr().out

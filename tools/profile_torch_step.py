@@ -7,6 +7,7 @@
     PYTHONPATH=src python3 tools/profile_torch_step.py --path tune --n 20000 --steps 5
     PYTHONPATH=src python3 tools/profile_torch_step.py --path serve --block 64 --steps 50
     PYTHONPATH=src python3 tools/profile_torch_step.py --path lm --steps 5
+    PYTHONPATH=src python3 tools/profile_torch_step.py --path train --steps 3
 
 ``--path askotch`` (default): the taxi configuration of ``chip_smoke.py``
 (d = 9, sigma = 1, lam_unscaled = 2e-7, b = 50,000, r = 100, f32) with
@@ -35,9 +36,16 @@ LM that ``chip_smoke.py`` times at full size; random weights from seed 0)
 at the JAX serve launcher's batch of 4 after a 32-token prefill, each fed
 its own greedy token and ending in a synchronize; one warm-up step first.
 
+``--path train``: train steps of qwen2-1.5b at its published config (bf16
+activations, f32 parameters, remat "full") at the JAX train launcher's
+defaults (batch 8, seq 128, AdamW at 3e-4 through ``launch.train.build``),
+as ``chip_smoke.py``'s phase ``train`` runs them on one repeated batch,
+each ending in a synchronize; two warm-up steps first.
+
 Prints one JSON line per device operation group (top 15 by device time, per
-step) and a summary line with the host wall time per step and the device
-time the trace saw.  Needs a CUDA card.
+step), one per host operator (top 12 by its own CPU time) and a summary
+line with the host wall time per step and the device time the trace saw.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -161,9 +169,40 @@ def _lm_steps(args):
     return run, walls
 
 
+def _train_steps(args):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import build
+    from repro_torch.models.model_api import init_params
+
+    cfg = get_config("qwen2-1.5b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    batch = synthetic.batch_for(cfg, (8, 128), 0, 0, device="cuda")
+    opt, stepfn = build(cfg, 3e-4, 10)
+    state = {"params": params, "opt": opt.init(params), "step": 0}
+
+    def step():
+        state["params"], state["opt"], _ = stepfn(state["params"], state["opt"], batch,
+                                                  state["step"])
+        state["step"] += 1
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+
+    def run():
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+    return run, walls
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", default="askotch", choices=["askotch", "tune", "serve", "lm"])
+    ap.add_argument("--path", default="askotch", choices=["askotch", "tune", "serve", "lm", "train"])
     ap.add_argument("--n", type=int, default=None,
                     help="rows (default 10^6 for askotch, 20,000 for tune)")
     ap.add_argument("--block", type=int, default=None,
@@ -183,8 +222,8 @@ def main() -> None:
     default_kernels = "rbf,laplacian,matern52" if args.path == "tune" else "rbf"
     kernels = tuple((args.kernels or default_kernels).split(","))
     n = args.n or (20_000 if args.path == "tune" else 1_000_000)
-    if args.path == "lm":
-        run, walls = _lm_steps(args)
+    if args.path in ("lm", "train"):
+        run, walls = (_lm_steps if args.path == "lm" else _train_steps)(args)
     else:
         x, y = synthetic.taxi_like(0, n, 9, device="cuda")
         weights = (None if args.weights is None
@@ -208,15 +247,25 @@ def main() -> None:
     device_ms = sum(r["device_ms_per_step"] for r in rows) * args.steps
     for r in rows[:15]:
         print(json.dumps(r))
+    # the host's side: operators by their own CPU time
+    host = [{"host_op": ev.key[:120], "calls_per_step": ev.count / args.steps,
+             "self_cpu_ms_per_step": ev.self_cpu_time_total / 1e3 / args.steps}
+            for ev in prof.key_averages() if ev.device_type == DeviceType.CPU]
+    host.sort(key=lambda r: -r["self_cpu_ms_per_step"])
+    for r in host[:12]:
+        print(json.dumps(r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({
         "summary": True, "path": args.path,
-        **({"arch": "qwen2-1.5b"} if args.path == "lm" else {"kernels": list(kernels), "n": n}),
+        **({"arch": "qwen2-1.5b"} if args.path in ("lm", "train")
+           else {"kernels": list(kernels), "n": n}),
         "block": args.block, "steps": args.steps,
         "wall_ms_per_step": [1e3 * w for w in walls],
         "wall_ms_per_step_median": 1e3 * statistics.median(walls),
         "device_ms_per_step": device_ms / args.steps,
+        "kernel_launches_per_step": sum(r["calls"] for r in rows) / args.steps,
+        "host_ops_per_step": sum(r["calls_per_step"] for r in host),
         "idle_share": (1.0 - (device_ms / 1e3) / sum(walls)) if args.path != "tune" else None,
         "card": smi,
     }))
