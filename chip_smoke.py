@@ -245,10 +245,30 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                published config); their JSON keys must be the JAX
                launchers'.
 
+  9. dryrun  — the dry run (``repro_torch.launch.dryrun``: meta-tensor
+               traces, no card) held against the card.  (a) The KRR cell at
+               phase 6f's (1, 1) size (n = 10^6, b = 50,000, r = 100): the
+               predicted argument bytes equal the real step's inputs' bytes
+               (the state in ``abstract_dist_inputs``' layout, x, y), the
+               real step's ms (CUDA events, median of 5, draws injected) is
+               at or above the dry run's roofline floor (its largest term at
+               the f32 peak), and the predicted peak (arguments + temp) is
+               recorded beside ``torch.cuda.max_memory_allocated``'s.  (b)
+               The same for qwen2-1.5b at its published config: the train
+               step at phase 7c's shape (batch 8, seq 128; parameters, the
+               dry run's AdamW state, the batch and the step counter) and
+               decode at phase 7b's (batch 4, a 48-slot cache; parameters,
+               cache and batch).  (c) The dry-run CLI for the KRR cell on
+               both production meshes and for qwen2-1.5b on its four shapes
+               (``long_500k`` skipped, as ``shape_applicable`` says), timed,
+               with the wrappers' launch counts unchanged (a meta trace
+               launches nothing); its report goes to
+               ``chiprun_out/dryrun_report.md``.
+
 Each of the paths in phases 4-6f sets every launch count to 0 just before
 it runs and reads the counts just after; a kernel of the path that was
 never launched fails the run.  Phases run in the order 1-3b', 3c, 4, 4b, 5,
-6, 6b, 6c, 6d, 6e, 6f, 7, 7b, 7c, 8.
+6, 6b, 6c, 6d, 6e, 6f, 7, 7b, 7c, 8, 9.
 
 It imports nothing of JAX or of the JAX package.  Full build logs go to
 ``chiprun_out/chip_smoke_build.log``.
@@ -320,38 +340,6 @@ SERVE_MODEL_KEYS = ["model", "version", "n_requests", "n_rows", "qps", "p50_ms",
                     "mean_ms", "occupancy", "compile_cache_depth", "bytes"]
 
 TOL = {"f32": (2e-4, 2e-5), "bf16": (0.05, 0.02)}
-
-# f32 operations per pair of each base-tile family at feature width d (l2:
-# d products and sums, two adds, the clamp; l1: subtract, abs, add per
-# feature; cos: the dot product and its division by the norms) and of each
-# kernel map on that tile
-FAMILY_OPS = {"l2": lambda d: 2 * d + 3, "l1": lambda d: 3 * d, "dot": lambda d: 2 * d,
-              "cos": lambda d: 2 * d + 3}
-MAP_OPS = {"rbf": 2, "laplacian": 2, "matern52": 8, "linear": 1, "polynomial": 4,
-           "sigmoid": 3, "cosine": 0}
-
-
-def rbf_ops_per_pair(d: int, t: int) -> int:
-    """f32 operations per (row, column) pair of the main path's rbf kernel:
-    the squared distance ||a||^2 + ||b||^2 - 2 a.b (2d + 3: d products and
-    sums, two adds, the clamp), the map (scale, exp), then 2 per value column."""
-    return 2 * d + 3 + 2 + 2 * t
-
-
-def multi_ops_per_pair(kernels, d: int, t: int, kind: str) -> int:
-    """f32 operations per pair of a multi-kernel op: one base tile per
-    family present, every kernel's map, then the products — ``"matvec"``
-    with (q,) weights: combine the q values (2 each) and 2 per column;
-    ``"cols"`` (per-column weights) and ``"components"``: 2 per kernel and
-    column; ``"block"``: the weighted sum (2 per kernel)."""
-    from repro_torch.core.kernels import kernel_family
-
-    q = len(kernels)
-    ops = sum(FAMILY_OPS[f](d) for f in dict.fromkeys(kernel_family(k) for k in kernels))
-    ops += sum(MAP_OPS[k] for k in kernels)
-    return ops + {"matvec": 2 * q + 2 * t, "cols": 2 * q * t, "components": 2 * q * t,
-                  "block": 2 * q}[kind]
-
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -2427,23 +2415,20 @@ def _bound_of(flops: float, nbytes: float) -> dict:
 
 
 def _bound(m: int, n: int, d: int, t: int | None) -> dict:
-    """Bound of the rbf work on (m, d) x (n, d) rows; ``t`` None is the block."""
-    flops = m * n * rbf_ops_per_pair(d, t or 0)
-    if t:  # matvec: read A, B, V once, write out once
-        nbytes = 4 * (m * d + n * d + n * t + m * t)
-    else:  # block: read A, B once, write K once
-        nbytes = 4 * (m * d + n * d + m * n)
-    return _bound_of(flops, nbytes)
+    """Bound of the rbf work on (m, d) x (n, d) rows; ``t`` None is the
+    block (``repro_torch.roofline.analyze.kernel_cost``: the formula the
+    dry run's meta route reads too)."""
+    from repro_torch.roofline import analyze
+
+    return _bound_of(*analyze.kernel_cost(m, n, d, t))
 
 
 def _bound_multi(m: int, n: int, d: int, t: int, kernels, kind: str) -> dict:
-    """Bound of a multi-kernel op (``kind`` as in :func:`multi_ops_per_pair`)."""
-    q = len(kernels)
-    flops = m * n * multi_ops_per_pair(kernels, d, t, kind)
-    nbytes = 4 * (m * d + n * d)
-    nbytes += {"matvec": 4 * (n * t + m * t), "cols": 4 * (n * t + q * t + m * t),
-               "components": 4 * (n * t + q * m * t), "block": 4 * m * n}[kind]
-    return _bound_of(flops, nbytes)
+    """Bound of a multi-kernel op (``kind`` as in
+    ``repro_torch.roofline.analyze.multi_ops_per_pair``)."""
+    from repro_torch.roofline import analyze
+
+    return _bound_of(*analyze.multi_kernel_cost(m, n, d, t, kernels, kind))
 
 
 def _sfu_floor_ms(m: int, n: int, kernels) -> float:
@@ -3384,6 +3369,165 @@ def phase_launch() -> dict:
     return report
 
 
+DRYRUN_TRAIN = ("train_smoke", "train", TRAIN_SEQ, TRAIN_BATCH)  # phase train's shape
+DRYRUN_DECODE = ("decode_lm", "decode", LM_PROMPT + LM_NEW, LM_BATCH)  # phase lm's
+DRYRUN_CLI_CELLS = 10  # the KRR cell x 2 meshes + qwen2-1.5b x 4 shapes x 2 meshes
+
+
+def _tree_bytes(*trees) -> int:
+    """Bytes of every tensor in nested dicts, tuples and lists."""
+    total = 0
+    for tree in trees:
+        if isinstance(tree, dict):
+            total += _tree_bytes(*tree.values())
+        elif isinstance(tree, (tuple, list)):
+            total += _tree_bytes(*tree)
+        elif hasattr(tree, "element_size"):
+            total += tree.numel() * tree.element_size()
+    return total
+
+
+def _against_prediction(what: str, pred: dict, args, fn, smi: str) -> dict:
+    """A real step on the card against the dry run's prediction ``pred``
+    (one cell's record at (1, 1)): argument bytes equal, ms at or above the
+    roofline floor, the peak recorded.  ``args`` are the step's arguments."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    real_args = _tree_bytes(args)
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    real_peak = real_args + torch.cuda.max_memory_allocated() - before
+    ms = _time_ms(fn)
+    mem = pred["memory"]
+    floor_ms = 1e3 * dryrun.floor_s(pred)
+    rec = {"phase": "dryrun", "cell": what, "card": smi,
+           "predicted_argument_bytes": mem["argument_bytes"], "argument_bytes": real_args,
+           "ms": ms, "floor_ms": floor_ms, "over_floor": ms / floor_ms,
+           "predicted_peak_bytes": mem["argument_bytes"] + mem["temp_bytes"],
+           "peak_bytes": real_peak, "cost": pred.get("cost_extrapolated") or pred["cost_raw"],
+           "compute_dtype": pred["compute_dtype"], "failed": []}
+    if mem["argument_bytes"] != real_args:
+        rec["failed"].append("predicted argument bytes != the real step's")
+    if not ms >= floor_ms:
+        rec["failed"].append("real step below the dry run's floor: the count is wrong")
+    emit(rec)
+    return rec
+
+
+def phase_dryrun(smi: str) -> list[dict]:
+    import contextlib
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import askotch_krr
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.distributed.krr_dist import DistState, make_dist_askotch_step
+    from repro_torch.distributed.meshes import AbstractMesh, SolverMesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model_api import ShapeConfig, get_model, init_params
+    from repro_torch.roofline import report
+    from repro_torch.training.train_step import make_train_step
+
+    recs = []
+    # (a) the KRR cell at phase dist's (1, 1) size
+    dcfg = dryrun.krr_dist_config(dataclasses.replace(askotch_krr.config(), n=N_TRAIN,
+                                                      block_size=BLOCK, rank=RANK))
+    pred = dryrun.krr_cell(dcfg, SolverMesh(["meta"], shape=(1, 1)))
+    x, y = taxi_data()
+    x, y = x[:N_TRAIN], y[:N_TRAIN]
+    dev = x.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = DistState(
+        w=torch.zeros(N_TRAIN, device=dev), v=torch.zeros(N_TRAIN, device=dev),
+        z=torch.zeros(N_TRAIN, device=dev),
+        generator=torch.empty(2, dtype=torch.uint32, device=dev),  # the key's slot
+        sketch_res=torch.zeros((), device=dev), pv=torch.randn(BLOCK, device=dev, generator=g))
+    draws = dict(idx=torch.randint(0, N_TRAIN, (BLOCK,), device=dev, generator=g),
+                 omega=torch.randn((BLOCK, RANK), device=dev, generator=g),
+                 probe=torch.randn((BLOCK,), device=dev, generator=g))
+    step = make_dist_askotch_step(SolverMesh(["cuda:0"], shape=(1, 1)), dcfg)
+    ops.reset_launches()
+    rec = _against_prediction("askotch-krr (1, 1), n 1e6", pred, (state, x, y),
+                lambda: step(state, x, y, **draws), smi)
+    rec["launches"] = ops.launches()
+    rec["meta_kernel_calls"] = pred["kernel_calls"]
+    if set(pred["kernel_calls"]) - {k for k, v in rec["launches"].items() if v}:
+        rec["failed"].append("a kernel the trace calls never launched on the card")
+    recs.append(rec)
+    del state, draws
+
+    # (b) qwen2-1.5b: the train step at phase train's shape, decode at phase lm's
+    cfg, mesh11 = get_config("qwen2-1.5b"), AbstractMesh(("data", "model"), (1, 1))
+    impl = get_model(cfg)
+    torch.cuda.empty_cache()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    shape = ShapeConfig(*DRYRUN_TRAIN)
+    opt = dryrun._optimizer(cfg)
+    opt_state = opt.init(params)
+    batch = synthetic.batch_for(cfg, (shape.global_batch, shape.seq_len), 0, 0, device="cuda")
+    step_t = torch.zeros((), dtype=torch.int32, device="cuda")
+    train = make_train_step(cfg, opt)
+    recs.append(_against_prediction(f"qwen2-1.5b train {shape.global_batch} x {shape.seq_len}",
+                      dryrun.lm_cell(cfg, shape, mesh11), (params, opt_state, batch, step_t),
+                      lambda: train(params, opt_state, batch, step_t), smi))
+    del opt_state, batch
+    torch.cuda.empty_cache()
+    shape = ShapeConfig(*DRYRUN_DECODE)
+    cache = impl.init_cache(cfg, shape.global_batch, shape.seq_len, device="cuda")
+    batch = {"tokens": torch.zeros((shape.global_batch, 1), dtype=torch.int32, device="cuda")}
+    recs.append(_against_prediction(f"qwen2-1.5b decode {shape.global_batch} x {shape.seq_len}",
+                      dryrun.lm_cell(cfg, shape, mesh11), (params, cache, batch),
+                      lambda: impl.decode_step(params, cache, batch, cfg), smi))
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # (c) the CLI: the KRR cell on both production meshes, qwen2-1.5b's four shapes
+    out = OUT_DIR / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with open(OUT_DIR / "dryrun_cli.log", "w") as log, contextlib.redirect_stdout(log):
+        dryrun.main(["--arch", f"{dryrun.KRR_ARCH},qwen2-1.5b", "--shape", "all",
+                     "--mesh", "both", "--out", str(out)])
+    seconds = time.perf_counter() - t0
+    cells = report.load(str(out))
+    tables = "\n\n".join([report.dryrun_table(cells, "single"),
+                          report.dryrun_table(cells, "multi"), report.roofline_table(cells)])
+    (OUT_DIR / "dryrun_report.md").write_text(tables + "\n")
+    status = {f"{r['arch']} {r['shape']} {r['mesh']}": r["status"] for r in cells}
+    rec = {"phase": "dryrun", "cell": "cli", "seconds": seconds, "status": status,
+           "launches": ops.launches(), "cells": [
+               {k: r.get(k) for k in ("arch", "shape", "mesh", "memory", "cost_extrapolated",
+                                      "seconds")} for r in cells if r["status"] == "ok"],
+           "failed": []}
+    want = {f"{a} {s} {m}": ("skipped" if s == "long_500k" else "ok")
+            for a, shapes in ((dryrun.KRR_ARCH, ("krr_step",)),
+                              ("qwen2-1.5b", ("train_4k", "prefill_32k", "decode_32k",
+                                              "long_500k")))
+            for s in shapes for m in ("single", "multi")}
+    if len(cells) != DRYRUN_CLI_CELLS or status != want:
+        rec["failed"].append(f"cells {status} != {want}")
+    if any(rec["launches"].values()):
+        rec["failed"].append("a meta trace launched a kernel")
+    emit(rec)
+    recs.append(rec)
+    bad = [f"{r['cell']}: {f}" for r in recs for f in r["failed"]]
+    if bad:
+        fail(f"dryrun: {bad}")
+    return recs
+
+
 def main() -> int:
     try:
         import torch
@@ -3425,6 +3569,7 @@ def main() -> int:
     phase_lm(smi)
     phase_train(smi)
     phase_launch()
+    phase_dryrun(smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{k: r[k] for k in (
         "name", "case", "route", "source", "replaces", "launches", "max_abs_err", "ms",

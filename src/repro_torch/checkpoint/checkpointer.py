@@ -11,9 +11,16 @@ its two bytes (a 2-byte void array, as numpy writes the reference's
 ``ml_dtypes`` bf16) under the manifest dtype ``"bfloat16"``; ``restore``
 rebuilds every leaf in the dtype its manifest names, so bf16 parameters and
 optimizer state come back as bf16 (the reference's own ``restore`` hands
-them back as raw bytes).  ``device=`` places the restored tensors, the one
-relayout of one device; resharding onto a mesh waits for the logical-axis
-rules.
+them back as raw bytes).  ``device=`` places the restored tensors on one
+device.
+
+Elastic restore: ``restore(root, shardings=)`` takes a tree of (mesh,
+physical spec) pairs (``distributed.meshes.named_shardings`` /
+``sanitized_shardings`` of a ``SolverMesh``) and returns each leaf as a
+``ShardedValue``, ``{coord: shard}`` with each shard on its coordinate's
+device, cut by the spec's shard shape: a checkpoint written on one mesh
+comes back on another.  ``save`` takes such a leaf and writes its global
+array, as the reference writes a sharded array through ``np.asarray``.
 
 ``latest_step`` / ``restore`` skip ``.tmp`` directories, so a crash
 mid-write is never mistaken for a checkpoint.
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.meshes import ShardedValue
 
 SEP = "||"
 
@@ -39,7 +47,7 @@ def _flatten(tree) -> dict[str, Any]:
     flat = {}
 
     def walk(node, prefix):
-        if isinstance(node, dict):
+        if isinstance(node, dict) and not isinstance(node, ShardedValue):
             for k, v in node.items():
                 walk(v, f"{prefix}{SEP}{k}" if prefix else str(k))
         elif isinstance(node, (tuple, list)):
@@ -73,6 +81,8 @@ def _unflatten(flat: dict[str, Any]):
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     """(the array written, the manifest dtype)."""
+    if isinstance(leaf, ShardedValue):
+        leaf = leaf.global_array()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -147,10 +157,33 @@ def latest_step(root: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(root: str, step: int | None = None, *, device="cuda"):
-    """Load a checkpoint (the latest when ``step`` is None) as tensors on
-    ``device``, each in its manifest dtype.  Returns (state, extra, step)."""
-    dev = resolve_device(device)
+def _is_sharding(node) -> bool:
+    return (isinstance(node, tuple) and len(node) == 2 and hasattr(node[0], "shard")
+            and isinstance(node[1], tuple))
+
+
+def _reshard(state, shardings):
+    """Each leaf of ``state`` cut onto the mesh of its (mesh, spec) pair in
+    ``shardings`` (a leaf whose pair is None stays as it is)."""
+    if shardings is None:
+        return state
+    if _is_sharding(shardings):
+        mesh, spec = shardings
+        return mesh.shard(state, spec)
+    if isinstance(state, dict):
+        return {k: _reshard(v, shardings[k]) for k, v in state.items()}
+    if isinstance(state, tuple):
+        return tuple(_reshard(v, sh) for v, sh in zip(state, shardings))
+    raise ValueError(f"no (mesh, spec) pair for a leaf: got {shardings!r}")
+
+
+def restore(root: str, step: int | None = None, *, device="cuda", shardings=None):
+    """Load a checkpoint (the latest when ``step`` is None), each leaf in
+    its manifest dtype: tensors on ``device``, or, under ``shardings`` (a
+    tree of (mesh, physical spec) pairs mirroring the state), each leaf as
+    a ``ShardedValue`` on its mesh (elastic relayout).  Returns (state,
+    extra, step)."""
+    dev = torch.device("cpu") if shardings is not None else resolve_device(device)
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -161,4 +194,4 @@ def restore(root: str, step: int | None = None, *, device="cuda"):
     dtypes = manifest["dtypes"]
     with np.load(os.path.join(path, "arrays.npz")) as z:
         flat = {k: _to_tensor(z[k], dtypes[k], dev) for k in z.files}
-    return _unflatten(flat), manifest["extra"], step
+    return _reshard(_unflatten(flat), shardings), manifest["extra"], step

@@ -18,7 +18,7 @@ def config() -> ArchConfig:
         d_ff=33792, vocab_size=256000, tie_embeddings=False,
         dtype="bfloat16", param_dtype="bfloat16",
         optimizer="adafactor", remat="full", microbatches_train=4,
-        grad_accum_dtype="bfloat16",
+        grad_accum_dtype="bfloat16", fsdp_over_pod=True,
         source="hf:CohereForAI/c4ai-command-r-v01; unverified",
     )
 
@@ -28,4 +28,5 @@ def reduced() -> ArchConfig:
         config(), num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
         d_ff=128, vocab_size=256, dtype="float32", param_dtype="float32",
         remat="none", microbatches_train=1, grad_accum_dtype="float32",
+        fsdp_over_pod=False,
     )

@@ -18,7 +18,7 @@ def config() -> ArchConfig:
         tie_embeddings=False,
         dtype="bfloat16", param_dtype="bfloat16",
         optimizer="adafactor", remat="full", microbatches_train=8,
-        grad_accum_dtype="bfloat16",
+        grad_accum_dtype="bfloat16", fsdp_over_pod=True,
         source="hf:xai-org/grok-1; unverified",
     )
 
@@ -29,4 +29,5 @@ def reduced() -> ArchConfig:
         d_ff=96, vocab_size=256, num_experts=4, top_k=2, dtype="float32",
         param_dtype="float32",
         remat="none", microbatches_train=1, grad_accum_dtype="float32",
+        fsdp_over_pod=False,
     )

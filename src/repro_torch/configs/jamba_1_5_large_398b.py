@@ -21,7 +21,7 @@ def config() -> ArchConfig:
         rope_fraction=0.0, tie_embeddings=False,
         dtype="bfloat16", param_dtype="bfloat16", sub_quadratic=True,
         optimizer="adafactor", remat="full", microbatches_train=8,
-        grad_accum_dtype="bfloat16",
+        grad_accum_dtype="bfloat16", fsdp_over_pod=True,
         source="arXiv:2403.19887; hf",
     )
 
@@ -32,4 +32,5 @@ def reduced() -> ArchConfig:
         d_ff=96, vocab_size=256, num_experts=4, top_k=2, attn_period=4,
         d_state=8, dtype="float32", param_dtype="float32",
         remat="none", microbatches_train=1, grad_accum_dtype="float32",
+        fsdp_over_pod=False,
     )

@@ -268,6 +268,25 @@ def init_dist_state(cfg: DistKRRConfig, seed: int = 0, *, device="cuda") -> Dist
     )
 
 
+def abstract_dist_inputs(cfg: DistKRRConfig):
+    """Meta tensors of the step's inputs (shapes and dtypes, no
+    allocation): ``(state, x, y)`` in the reference's shapes and dtypes.
+    The generator's slot holds the reference's PRNG key, a (2,) uint32, so
+    the state's bytes are the reference's; a step on these inputs takes its
+    draws injected, since nothing draws on meta."""
+    shape = (cfg.n,) if cfg.heads == 1 else (cfg.n, cfg.heads)
+
+    def meta(*dims, dtype=torch.float32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    state = DistState(
+        w=meta(*shape), v=meta(*shape), z=meta(*shape),
+        generator=meta(2, dtype=torch.uint32),
+        sketch_res=meta(), pv=meta(cfg.block_size),
+    )
+    return state, meta(cfg.n, cfg.d), meta(*shape)
+
+
 # ---------------------------------------------------------------------------
 # the solve loops (the mesh= path behind core.solver_api.solve)
 # ---------------------------------------------------------------------------

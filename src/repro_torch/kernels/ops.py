@@ -3,7 +3,12 @@
 A CPU tensor runs the plain PyTorch version (``ref``); a CUDA tensor
 launches the hand-written CUDA kernel (``kernel_matvec``, ``kernel_block``,
 and the three multi-kernel ops of ``multi``), which raises on what it does
-not take.  There is no fallback from one to the other.
+not take.  There is no fallback from one to the other.  ``meta`` operands
+(the dry run: shapes, no data) compute nothing: they get an empty result
+of the kernel's shape and add the kernel's analytic FLOPs and bytes to the
+active cost counter (``repro_torch.roofline.analyze``), which no dispatch
+mode would see through the CUDA kernels' ctypes calls.  Operands on mixed
+devices raise.
 
 Every entry point shares the contract of ``repro.kernels.ops``: never form
 K(a, b) beyond one tile, accumulate in f32, accept a multi-RHS value matrix
@@ -31,6 +36,7 @@ from repro_torch.kernels.multi import (
     kernel_matvec_multi_cuda,
 )
 from repro_torch.kernels.precision import PRECISIONS, check_precision
+from repro_torch.roofline import analyze
 
 __all__ = [
     "PRECISIONS", "check_precision", "kernel_matvec", "kernel_block", "kernel_matvec_multi",
@@ -53,7 +59,23 @@ def _route(*xs: torch.Tensor) -> str:
         return "cpu"
     if kinds == {"cuda"}:
         return "cuda"
-    raise ValueError(f"operands must all be on the CPU or all on CUDA; got {sorted(kinds)}")
+    if kinds == {"meta"}:
+        return "meta"
+    raise ValueError(f"operands must all be on the CPU, all on CUDA or all on meta; "
+                     f"got {sorted(kinds)}")
+
+
+def _meta_result(name: str, shape: tuple[int, ...], cost: tuple[float, float]
+                 ) -> torch.Tensor:
+    """The kernel's f32 result on meta, its analytic work recorded."""
+    analyze.record_kernel(name, *cost)
+    return torch.empty(shape, dtype=torch.float32, device="meta")
+
+
+def _dims(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor | None = None):
+    """(m, n, d, t) of an op on (m, d) x (n, d) rows and a value matrix."""
+    t = None if v is None else (1 if v.ndim == 1 else v.shape[1])
+    return a.shape[0], b.shape[0], a.shape[1], t
 
 
 def kernel_matvec(
@@ -75,7 +97,12 @@ def kernel_matvec(
     precision = check_precision(precision)
     kernel_family(kernel)  # unknown kernel names raise here
     sigma = float(sigma)
-    if _route(a, b, v) == "cpu":
+    route = _route(a, b, v)
+    if route == "meta":
+        m, n, d, t = _dims(a, b, v)
+        return _meta_result("kernel_matvec", (m,) + tuple(v.shape[1:]),
+                            analyze.kernel_cost(m, n, d, t, kernel))
+    if route == "cpu":
         return ref.kernel_matvec(
             a, b, v, sigma, kernel=kernel, chunk_a=chunk_a, chunk_b=chunk_b,
             precision=precision,
@@ -95,7 +122,11 @@ def kernel_block(
     precision = check_precision(precision)
     kernel_family(kernel)
     sigma = float(sigma)
-    if _route(a, b) == "cpu":
+    route = _route(a, b)
+    if route == "meta":
+        m, n, d, _ = _dims(a, b)
+        return _meta_result("kernel_block", (m, n), analyze.kernel_cost(m, n, d, None, kernel))
+    if route == "cpu":
         return ref.kernel_block(a, b, sigma, kernel=kernel, precision=precision)
     return kernel_block_cuda(a, b, kernel=kernel, sigma=sigma, precision=precision)
 
@@ -153,7 +184,13 @@ def kernel_matvec_multi(
     else:
         raise TypeError(f"weights must be a sequence of {q} floats or a ({q}, t) tensor; "
                         f"got {type(weights).__name__}")
-    if _route(*operands) == "cpu":
+    route = _route(*operands)
+    if route == "meta":
+        m, n, d, t = _dims(a, b, v)
+        kind = "matvec" if w_plain is None else "cols"
+        return _meta_result("kernel_matvec_multi", (m,) + tuple(v.shape[1:]),
+                            analyze.multi_kernel_cost(m, n, d, t, kernels, kind))
+    if route == "cpu":
         if w_plain is None:
             w_plain = torch.tensor(weights, dtype=torch.float32)
         return ref.kernel_matvec_multi(
@@ -178,7 +215,12 @@ def kernel_matvec_components(
     """Stacked per-kernel products (q, m[, t]): out[i] = K_i(a, b) @ v, one
     data sweep for all q (the multi-kernel tuner's per-kernel sketches)."""
     kernels, sigmas, precision = _multi_spec(kernels, sigmas, precision)
-    if _route(a, b, v) == "cpu":
+    route = _route(a, b, v)
+    if route == "meta":
+        m, n, d, t = _dims(a, b, v)
+        return _meta_result("kernel_matvec_components", (len(kernels), m) + tuple(v.shape[1:]),
+                            analyze.multi_kernel_cost(m, n, d, t, kernels, "components"))
+    if route == "cpu":
         return ref.kernel_matvec_components(
             a, b, v, sigmas, kernels=kernels, chunk_a=chunk_a, chunk_b=chunk_b,
             precision=precision,
@@ -201,7 +243,12 @@ def kernel_block_multi(
     weights = tuple(float(w) for w in weights)
     if len(weights) != len(kernels):
         raise ValueError(f"{len(weights)} weights for {len(kernels)} kernels")
-    if _route(a, b) == "cpu":
+    route = _route(a, b)
+    if route == "meta":
+        m, n, d, _ = _dims(a, b)
+        return _meta_result("kernel_block_multi", (m, n),
+                            analyze.multi_kernel_cost(m, n, d, 0, kernels, "block"))
+    if route == "cpu":
         return ref.kernel_block_multi(a, b, sigmas, weights, kernels=kernels, precision=precision)
     return kernel_block_multi_cuda(a, b, kernels=kernels, sigmas=sigmas, weights=weights,
                                    precision=precision)

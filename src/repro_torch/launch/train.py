@@ -6,9 +6,12 @@ port of ``repro.launch.train``.
 
 ``--device`` (default ``cuda``) holds the parameters, the optimizer state,
 the batches and every step; ``cuda`` without a card is an error.  One
-device: the reference's 2-D mesh over many devices waits for the port's
-logical-axis rules.  Parameters are random, drawn from a generator seeded
-with ``--seed`` (torch's streams, not JAX's).
+device: the reference's launcher builds parameter shardings on its 2-D mesh
+but never applies them, so its mesh only installs activation hints, and the
+port runs no sharded LM program those hints could steer (the logical-axis
+rules themselves are in ``distributed.meshes``; the dry run plans with
+them).  Parameters are random, drawn from a generator seeded with
+``--seed`` (torch's streams, not JAX's).
 
 Fault tolerance, as in the reference:
   * atomic checkpoints every ``--ckpt-every`` steps (parameters, optimizer

@@ -72,15 +72,17 @@ class ArchConfig:
     encoder_layers: int = 0
     num_prefix_tokens: int = 0  # VLM patches / audio frames fed as embeddings
     tie_embeddings: bool = True
-    # numerics & training knobs (per arch, the JAX package's values; its mesh
-    # knobs residual_shard, fsdp_over_pod and scan_unroll wait for the
-    # dry-run slice, which maps logical axes onto devices)
+    # numerics & training knobs (per arch, the JAX package's values; its
+    # residual_shard and scan_unroll steer XLA's sharding hints and loop
+    # unrolling, which the port has no use for)
     dtype: str = "bfloat16"  # activation/compute dtype
     param_dtype: str = "float32"
     optimizer: str = "adamw"  # adamw | adafactor | sgdm
     remat: str = "full"  # full | dots | none (recompute under autograd only)
     microbatches_train: int = 1
     grad_accum_dtype: str = "float32"  # microbatch gradient accumulator dtype
+    fsdp_over_pod: bool = False  # multi-pod: shard params over ("pod","data")
+    #   (32-way FSDP) instead of pure cross-pod DP (the dry run's rules)
     attn_q_chunk: int = 512  # query-chunk size for exact tiled attention
     moe_dispatch_tokens: int = 32_768  # tokens per MoE routing round
     moe_combine_dtype: str = "auto"  # "auto" (= activation dtype) | "float32"

@@ -1,1 +1,3 @@
-"""Target-hardware constants of the port (``hw``): one NVIDIA H100."""
+"""The port's roofline: the H100's constants (``hw``), the dry run's cost
+and memory tracing on meta tensors (``analyze``) and its tables
+(``report``)."""

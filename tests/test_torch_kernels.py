@@ -155,12 +155,15 @@ def test_sigma_canonicalized(rng):
 
 
 def test_dispatch_refuses_other_devices(rng):
-    """Dispatch goes by the tensor's device: neither a non-CPU, non-CUDA
-    tensor nor a CPU tensor handed to a CUDA wrapper falls back anywhere."""
+    """Dispatch goes by the tensor's device: neither operands on mixed
+    devices nor a CPU tensor handed to a CUDA wrapper fall back anywhere;
+    meta operands (the dry run) compute nothing and get the result's shape."""
     a = _t(rng.standard_normal((5, 3)).astype(np.float32))
     v = _t(rng.standard_normal((5,)).astype(np.float32))
-    with pytest.raises(ValueError, match="all be on the CPU or all on CUDA"):
-        ops.kernel_matvec(a.to("meta"), a.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError, match="all be on the CPU, all on CUDA or all on meta"):
+        ops.kernel_matvec(a, a.to("meta"), v.to("meta"))
+    out = ops.kernel_matvec(a.to("meta"), a.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == (5,) and out.dtype == torch.float32
     with pytest.raises(ValueError, match="CUDA device"):
         kernel_matvec_cuda(a, a, v, kernel="rbf", sigma=1.0, precision="f32")
     with pytest.raises(ValueError, match="CUDA device"):

@@ -262,7 +262,7 @@ def test_moe_aux_loss_matches_reference(rng):
 # ---------------------------------------------------------------------------
 
 
-JAX_ONLY_KNOBS = {"residual_shard", "fsdp_over_pod", "scan_unroll"}
+JAX_ONLY_KNOBS = {"residual_shard", "scan_unroll"}
 
 
 def _dt(x) -> str:

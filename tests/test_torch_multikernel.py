@@ -190,8 +190,8 @@ def test_multi_dispatch_validates_and_refuses_mixed_devices(rng):
     with pytest.raises(ValueError, match="3 weights for 2 kernels"):
         ops.kernel_matvec_multi(ta, tb, tv, kernels=("rbf", "laplacian"), sigmas=(1, 1),
                                 weights=(0.2, 0.3, 0.5))
-    with pytest.raises(ValueError, match="all be on the CPU or all on CUDA"):
-        ops.kernel_matvec_multi(ta.to("meta"), tb.to("meta"), tv.to("meta"),
+    with pytest.raises(ValueError, match="all be on the CPU, all on CUDA or all on meta"):
+        ops.kernel_matvec_multi(ta, tb.to("meta"), tv.to("meta"),
                                 kernels=("rbf", "laplacian"), sigmas=(1, 1), weights=(0.5, 0.5))
     # the CUDA wrappers take no CPU tensor: nothing falls back to the plain version
     with pytest.raises(ValueError, match="CUDA device"):
