@@ -17,13 +17,19 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                kernel_matvec at t = 1 on the edges of its t = 1 sweep
                (T1_EDGES: d = 1, 16, 17; n below one staged B tile and one
                past a multiple of it), then kernel_matvec at t > 1 on the
-               edges of its two routes (the 8-column loop up to t = 8, the
-               column path above): every kernel x {f32, bf16} x d in {9,
+               edges of its two routes (the multi-column sweep up to t = 16,
+               the column path above): every kernel x {f32, bf16} x d in {9,
                37} at m = 1001, n = 2999 and t in COLS_T (each column
-               width, t % 4 != 0, several column blocks).  Tolerances as the
-               JAX package's kernel tests: f32 rtol 2e-4 / atol 2e-5 x
-               max(1, |ref|max); bf16 rtol 0.05 / atol 0.02 x max(1,
-               |ref|max).  546 checks.
+               width, t % 4 != 0, several column blocks); then the
+               multi-column sweep on its own edges: every kernel x {f32,
+               bf16} x d in HEADS_D (9, 16, 17, 37) x t in HEADS_T (2 to
+               16: each width W = 2, 4, 8, 12, 16, at it and below it) at
+               n = 2999 with m = 1001 (split over n) and 4097 (above
+               SPLIT_M: one range), and at m in HEADS_SPLIT_M (1, 8, 64,
+               65) with n at the split's tile edges (split_ns).
+               Tolerances as the JAX package's kernel tests: f32 rtol 2e-4
+               / atol 2e-5 x max(1, |ref|max); bf16 rtol 0.05 / atol 0.02 x
+               max(1, |ref|max).  9,702 checks.
   3b. check_multi — the three multi-kernel kernels against their plain
                versions, same tolerances and shapes: the combinations
                (rbf, laplacian, matern52) (l2 + l1 families), (linear,
@@ -53,9 +59,11 @@ Phases, each printing its own JSON line; any failure exits non-zero:
   3c. determinism — two launches of each t = 1 kernel (kernel_matvec, the
                weighted matvec) at the solve's G_B shape and at a serving
                bucket (64 x 10^6, split), of the weighted block at the
-               refit's K_BB, of the stacked matvec at the tune's sketch and
-               of kernel_matvec's column path at t = 100 (20,000^2 x 100)
-               are bitwise equal.
+               refit's K_BB, of the stacked matvec at the tune's sketch, of
+               kernel_matvec's column path at t = 100 (20,000^2 x 100) and
+               of its multi-column sweep at 50,000 x 10^6 x 8 and at a
+               10-head serving bucket (64 x 10^6 x 10, split) are bitwise
+               equal.
   4. solve   — the main path through ``solver_api.solve("askotch")`` at the
                paper's taxi configuration (d = 9, rbf, sigma = 1,
                lam_unscaled = 2e-7, b = 50,000, r = 100, f32), with n cut
@@ -130,17 +138,27 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                each with its own draws until its residual is below its
                start of 1; then 10 steps with injected indices on the card
                against the CPU plain run, within the f32 tolerance.
+  6d'. ova   — one-vs-all solves through ``solve("askotch")`` at phase 4's
+               configuration (n = 10^6 + 10^4 test rows, d = 9, rbf,
+               b = 50,000, r = 100, 20 iterations) on
+               ``synthetic.krr_one_vs_all`` blobs with 2, 4, 8 and 10
+               classes (t heads: kernel_matvec's multi-column sweep at G_B,
+               the prediction and the residual pass): every head's final
+               residual finite and below its start of 1, test accuracy,
+               seconds and the path's launches.
   6e. serve  — ``repro_torch.serving.ServingEngine`` on the card (max_batch
                1024, max_wait 5 ms) at n = 10^6: phase 4's model saved as an
                artifact, loaded and warmed (8 buckets), then 2,000 requests
                of 1-16 taxi test rows, Poisson at 2,000 requests/s from 4
                client threads; phase 6's multi-kernel model (the weighted
                t = 1 path) and a 10-head rbf model (random weights from a
-               seed: kernel_matvec's column path at small m), 500 requests
-               each.  Held: every response within the f32 tolerance of the
-               plain version, the threaded responses bitwise the sequential
-               closure's, the wrapper's launches = warm launches + bucket
-               runs, and 8 rows bitwise the same in buckets 8, 64 and 1024.
+               seed: kernel_matvec's multi-column sweep split over n), 500
+               requests each.  Held: every response within the f32
+               tolerance of the plain version, the threaded responses
+               bitwise the sequential closure's, the wrapper's launches =
+               warm launches + bucket runs, and 8 rows bitwise the same in
+               buckets 8, 64 and 1024, for the taxi model and the 10-head
+               model.
                Printed: p50 / p99 ms, qps, per-bucket runs and fill.
   6f. dist   — the distributed tier (``repro_torch.distributed``):
                ``solve("askotch", mesh=make_solver_mesh("1x1"))`` at phase
@@ -168,19 +186,20 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                --mesh 1x1`` and ``--method dc --dc-shards 4`` with the JAX
                launcher's keys.  Each path's launches are read.
   7. time    — each kernel at the main path's shapes (CUDA events, median
-               of 5 after warm-up) beside its plain version and its bound,
+               of 5 after warm-up; the plain version's of 3) beside its
+               plain version and its bound,
                with the kernel's result held against the plain one there;
                also kernel_matvec for the 10^4 prediction queries and for
                serving's buckets of 8, 64 (the small-m case) and 1024
-               queries, at t = 10 for 64 queries, the weighted matvec for 64
-               queries, and the multi-kernel kernels at the
+               queries, at t = 10 for 8, 64 and 1024 queries, the weighted
+               matvec for 64 queries, and the multi-kernel kernels at the
                tune's, the refit's and the prediction's shapes; the two
                t = 1 G_B rows carry the special-function floor
                (``sfu_floor_ms``) beside the bound.  The baselines' shapes:
                kernel_matvec at t = 100 (50,000 x 10^6, beside the sketch's
                one 10^6-row launch from phase 6b), kernel_block at (10^6, 1)
                and Falkon's two sweeps; and kernel_matvec at a one-vs-all
-               G_B of 10 heads (50,000 x 10^6 x 10); the distributed
+               G_B of 2, 4, 8 and 10 heads (50,000 x 10^6 x t); the distributed
                tier's (1, 1) Nystrom sketch (50,000^2 x 100) and powering
                (50,000^2, t = 1), and a DC shard's G_B (50,000 x 250,000)
                and K_BB.  The kernels line has
@@ -268,7 +287,7 @@ Phases, each printing its own JSON line; any failure exits non-zero:
 Each of the paths in phases 4-6f sets every launch count to 0 just before
 it runs and reads the counts just after; a kernel of the path that was
 never launched fails the run.  Phases run in the order 1-3b', 3c, 4, 4b, 5,
-6, 6b, 6c, 6d, 6e, 6f, 7, 7b, 7c, 8, 9.
+6, 6b, 6c, 6d, 6d', 6e, 6f, 7, 7b, 7c, 8, 9.
 
 It imports nothing of JAX or of the JAX package.  Full build logs go to
 ``chiprun_out/chip_smoke_build.log``.
@@ -525,9 +544,72 @@ def phase_check() -> dict:
                         fail(f"kernel_matvec {kern} {prec} d={d} m={m_c} n={n_c} t={t}: err {err}")
                     worst["kernel_matvec"] = max(worst["kernel_matvec"], err)
                     n_checks += 1
+    heads_checks, heads_worst = _check_heads(sigma)
+    worst["kernel_matvec"] = max(worst["kernel_matvec"], heads_worst)
     emit({"phase": "check", "m": m, "n": n, "sigma": sigma, "t1_edges": T1_EDGES,
-          "cols_t": COLS_T, "cols_checks": n_checks, "worst_abs_err": worst})
+          "cols_t": COLS_T, "cols_checks": n_checks, "heads_t": HEADS_T, "heads_d": HEADS_D,
+          "heads_split_m": HEADS_SPLIT_M, "heads_checks": heads_checks,
+          "worst_abs_err": worst})
     return worst
+
+
+def _err_on_card(got, ref, precision: str):
+    """``_err`` without a host sync: (max |got - ref|, within tolerance) as
+    0-d tensors on the card, read in bulk by the caller."""
+    import torch
+
+    rtol, atol = TOL[precision]
+    diff = (got - ref).abs()
+    scale = torch.clamp(ref.abs().max(), min=1.0)
+    ok = (diff <= rtol * ref.abs() + atol * scale).all() & (got.shape == ref.shape)
+    return diff.max(), ok
+
+
+def _check_heads(sigma: float) -> tuple[int, float]:
+    """kernel_matvec's multi-column sweep against its plain version on its
+    edges: every kernel x {f32, bf16} x d in HEADS_D x t in HEADS_T, at n =
+    2999 with m = 1001 (split over n) and 4097 (above SPLIT_M: one range),
+    and at m in HEADS_SPLIT_M with n at split_ns(d).  One line a (d, n, m)
+    with its ranges S; returns (checks, worst error)."""
+    import torch
+
+    from repro_torch.core.kernels import KERNEL_NAMES
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda, t1_splits
+
+    lib = _build.load("kernel_matvec")
+    gen = torch.Generator().manual_seed(25)
+    n_checks, worst = 0, 0.0
+    for d in HEADS_D:
+        for edge, n in {"n 2999": 2999, **split_ns(d)}.items():
+            b = (torch.randn((n, d), generator=gen) / math.sqrt(d)).cuda()
+            v = torch.randn((n, max(HEADS_T)), generator=gen).cuda()
+            for m in (1001, 4097) if edge == "n 2999" else HEADS_SPLIT_M:
+                a = (torch.randn((m, d), generator=gen) / math.sqrt(d)).cuda()
+                if m > 3:
+                    a[3] = 0.0  # cosine's zero-norm-as-1 rule
+                errs, labels = [], []
+                for t in HEADS_T:
+                    vt = v[:, :t].contiguous()
+                    for kern in KERNEL_NAMES:
+                        for prec in ("f32", "bf16"):
+                            got = kernel_matvec_cuda(a, b, vt, kernel=kern, sigma=sigma,
+                                                     precision=prec)
+                            want = ref.kernel_matvec(a, b, vt, sigma, kernel=kern, precision=prec)
+                            errs.append(_err_on_card(got, want, prec))
+                            labels.append((t, kern, prec))
+                err = torch.stack([e for e, _ in errs]).cpu()
+                ok = torch.stack([k for _, k in errs]).cpu()
+                n_checks += len(labels)
+                worst = max(worst, float(err.max()))
+                emit({"check": "heads", "d": d, "n": n, "edge": edge, "m": m,
+                      "splits": t1_splits(lib, m, n, d), "checks": len(labels),
+                      "max_abs_err": float(err.max()), "ok": bool(ok.all())})
+                if not bool(ok.all()):
+                    bad = [labels[i] for i in range(len(labels)) if not ok[i]]
+                    fail(f"kernel_matvec (multi-column sweep) d={d} n={n} m={m}: "
+                         f"{bad[:5]} off the plain version (worst err {float(err.max())})")
+    return n_checks, worst
 
 
 def phase_check_determinism() -> None:
@@ -535,8 +617,11 @@ def phase_check_determinism() -> None:
     bitwise equal results: the t = 1 kernels at the solve's G_B (50,000 x
     10^6, d = 9), the weighted block at the refit's K_BB (50,000^2), the
     stacked matvec at the tune's sketch (20,000^2 x 100), kernel_matvec
-    on its column path at a rank-100 sketch (20,000^2 x 100), and both t = 1
-    kernels on the split route at a serving bucket (64 x 10^6)."""
+    on its column path at a rank-100 sketch (20,000^2 x 100), both t = 1
+    kernels on the split route at a serving bucket (64 x 10^6), and
+    kernel_matvec's multi-column sweep at a one-vs-all G_B of 8 heads
+    (50,000 x 10^6 x 8) and at a 10-head serving bucket (64 x 10^6 x 10,
+    split)."""
     import torch
 
     from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda
@@ -552,6 +637,8 @@ def phase_check_determinism() -> None:
     xt = x[:N_TUNE]
     omega = torch.randn((N_TUNE, RANK), generator=torch.Generator(device="cuda").manual_seed(9),
                         device="cuda")
+    z8, z10 = (torch.randn((N_TRAIN, t), generator=torch.Generator(device="cuda").manual_seed(t),
+                           device="cuda") for t in (8, OVA_HEADS))
     runs = {
         "kernel_matvec": ([BLOCK, N_TRAIN, D, 1], lambda: kernel_matvec_cuda(
             xb, x, z, kernel="rbf", sigma=SIGMA, precision="f32")),
@@ -568,6 +655,11 @@ def phase_check_determinism() -> None:
         "kernel_matvec_multi (split, m = 64)": (
             [SMALL_M, N_TRAIN, D, 1], lambda: kernel_matvec_multi_cuda(
                 xb[:SMALL_M], x, z, w, kernels=MK_KERNELS, sigmas=sg, precision="f32")),
+        "kernel_matvec (t = 8)": ([BLOCK, N_TRAIN, D, 8], lambda: kernel_matvec_cuda(
+            xb, x, z8, kernel="rbf", sigma=SIGMA, precision="f32")),
+        f"kernel_matvec (split, m = 64, t = {OVA_HEADS})": (
+            [SMALL_M, N_TRAIN, D, OVA_HEADS], lambda: kernel_matvec_cuda(
+                xb[:SMALL_M], x, z10, kernel="rbf", sigma=SIGMA, precision="f32")),
     }
     for name, (shape, fn) in runs.items():
         first = fn()
@@ -580,7 +672,7 @@ def phase_check_determinism() -> None:
                  f"(max {float((first - second).abs().max())})")
         del first, second
         torch.cuda.empty_cache()
-    del x, xb, z, omega
+    del x, xb, z, omega, z8, z10
     torch.cuda.empty_cache()
 
 
@@ -603,13 +695,24 @@ MULTI_CASES = [
 T1_EDGES = [(1, 3001), (16, 3001), (17, 3001), (9, 100), (9, 257), (37, 50), (37, 65)]
 
 
-#: kernel_matvec's widths t > 1 in phase check: its 8-column loop (2, 3 and
-#: 8), then its column path: the narrow blocks (9 and 10 in a 32-column
-#: block; 33 and 64 in a 64-column one), the sketch's rank 100 (one
-#: 128-column block, cw 100), the edges of the 128- and 160-column blocks
-#: (128; 129 in one 160-column block; 160) and several blocks (161: two of
-#: 84 columns; 321: three of 108); V is padded to a multiple of 4 columns
-COLS_T = (2, 3, 8, 9, 10, 33, 64, 100, 128, 129, 160, 161, 321)
+#: kernel_matvec's widths t > 1 in phase check: its multi-column sweep (2,
+#: 3, 8, 9 and 10: widths 2, 4, 8 and 12), then its column path: the
+#: narrow blocks (17, 20 and 32 in a 32-column block: the narrowest t there,
+#: the single-kernel tune's 4 lams x 5 folds and the block's edge; 33 and
+#: 64 in a 64-column one), the sketch's rank 100 (one 128-column block, cw
+#: 100), the edges of the 128- and 160-column blocks (128; 129 in one
+#: 160-column block; 160) and several blocks (161: two of 84 columns; 321:
+#: three of 108); the column path's V is padded to a multiple of 4 columns
+COLS_T = (2, 3, 8, 9, 10, 17, 20, 32, 33, 64, 100, 128, 129, 160, 161, 321)
+
+#: the multi-column sweep's edges in phase check: each width W (2, 4, 8, 12,
+#: 16) at t = W and below it (3, 5, 9, 10, 13), at feature widths 9 and 16
+#: (256-row staged tiles) and 17 and 37 (the slab loop, 64-row tiles); rows
+#: of A on the split route (m <= 4096): one row, a bucket of 8, a block's
+#: 64 rows and one more
+HEADS_T = (2, 3, 5, 8, 9, 10, 12, 13, 16)
+HEADS_D = (9, 16, 17, 37)
+HEADS_SPLIT_M = (1, 8, 64, 65)
 
 #: the widths at which check_multi also holds the weighted matvec's column
 #: path: the tune's 160 columns (one 160-column block), 161 (two 128-column
@@ -1617,6 +1720,55 @@ def phase_check_split() -> dict:
     return rec
 
 
+#: one-vs-all classes of phase ova (t heads of one multi-RHS solve)
+OVA_CLASSES = (2, 4, 8, OVA_HEADS)
+
+
+def phase_ova() -> dict:
+    """One-vs-all askotch solves at phase solve's configuration on blobs of
+    OVA_CLASSES classes (kernel_matvec's multi-column sweep at G_B, the
+    prediction and the residual pass).  Returns each path's launches, by
+    ``"ova <classes>"``."""
+    import torch
+
+    from repro_torch.core.krr import KRRProblem, evaluate
+    from repro_torch.core.solver_api import solve
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    launches = {}
+    for classes in OVA_CLASSES:
+        x, y, _, x_te, y_te, _ = synthetic.krr_one_vs_all(
+            0, N_TRAIN, D, num_classes=classes, n_test=N_TEST, device="cuda")
+        problem = KRRProblem(x=x, y=y, kernel="rbf", sigma=SIGMA, lam_unscaled=LAM_UNSCALED,
+                             precision="f32")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = solve(problem, "askotch", block_size=BLOCK, rank=RANK, max_iters=MAX_ITERS,
+                    eval_every=MAX_ITERS)
+        pred = out.predict_fn(x_te)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[f"ova {classes}"] = ops.launches()
+        heads = [float(h) for h in out.info["rel_residual_per_head"]]
+        acc = float(evaluate(pred, y_te).accuracy)
+        emit({"phase": "ova", "classes": classes, "n": N_TRAIN, "n_test": N_TEST, "d": D,
+              "iters": out.info["iters"], "rel_residual": out.history[-1]["rel_residual"],
+              "rel_residual_per_head": heads, "test_accuracy": acc, "seconds": seconds,
+              "launches": launches[f"ova {classes}"]})
+        _on_card(f"ova {classes}", w=out.w, pred=pred)
+        _path_launches(launches[f"ova {classes}"], ("kernel_matvec", "kernel_block"),
+                       f"ova {classes}")
+        if not all(math.isfinite(h) and h < 1.0 for h in heads):
+            fail(f"ova {classes}: a head's final residual is not finite and below 1: {heads}")
+        if pred.shape != (N_TEST, classes) or not math.isfinite(acc):
+            fail(f"ova {classes}: prediction {tuple(pred.shape)}, accuracy {acc}")
+        del x, y, x_te, y_te, problem, out, pred
+        torch.cuda.empty_cache()
+    return launches
+
+
 # phase serve: the engine's settings and its traffic (the JAX package's
 # krr_serve launcher defaults: max_batch 1024, max_wait 5 ms, requests of
 # 1..16 rows), the taxi model's load and the two side models'
@@ -1737,9 +1889,10 @@ def phase_serve(solve_w, refit_best: dict, refit_w) -> list[dict]:
     """The serving engine on the card at full width (n = 10^6 taxi rows):
     phase solve's model saved as an artifact and loaded, 2,000 requests;
     phase refit's multi-kernel model (the weighted t = 1 path) and a
-    10-head model (random weights from a seed; kernel_matvec's column path
-    at small m), 500 requests each.  Also the same 8 rows bitwise in
-    buckets of 8, 64 and 1024 rows."""
+    10-head model (random weights from a seed; kernel_matvec's multi-column
+    sweep, split over n), 500 requests each.  Also the same 8 rows bitwise
+    in buckets of 8, 64 and 1024 rows, on the taxi model and the 10-head
+    model."""
     import shutil
 
     import numpy as np
@@ -1779,15 +1932,18 @@ def phase_serve(solve_w, refit_best: dict, refit_w) -> list[dict]:
             SERVE_SIDE_REQUESTS, 23, "kernel_matvec",
             lambda q: ref.kernel_matvec(q, xt, w_heads, SIGMA), pool))
     shutil.rmtree(art.parent)  # 40 MB: the output directory keeps logs, not models
-    # the same 8 rows in buckets of 8, 64 and 1024 rows, other rows beside them
-    predict = make_krr_predict_fn_from_config(cfg, xt, solve_w, max_batch=SERVE_MAX_BATCH)
+    # the same 8 rows in buckets of 8, 64 and 1024 rows, other rows beside
+    # them, on the taxi model (t = 1) and the 10-head model
     rows = pool[:8]
-    base = predict(rows).cpu().numpy()
     same = {}
-    for bucket, at in ((64, 37), (1024, 1000)):
-        q = pool[100:100 + bucket].copy()
-        q[at:at + 8] = rows
-        same[bucket] = bool(np.array_equal(predict(q)[at:at + 8].cpu().numpy(), base))
+    for model, w in (("taxi", solve_w), (f"taxi_{OVA_HEADS}_heads", w_heads)):
+        predict = make_krr_predict_fn_from_config(cfg, xt, w, max_batch=SERVE_MAX_BATCH)
+        base = predict(rows).cpu().numpy()
+        for bucket, at in ((64, 37), (1024, 1000)):
+            q = pool[100:100 + bucket].copy()
+            q[at:at + 8] = rows
+            same[f"{model} {bucket}"] = bool(
+                np.array_equal(predict(q)[at:at + 8].cpu().numpy(), base))
     emit({"phase": "serve", "check": "buckets", "rows": 8, "buckets": [8, 64, 1024],
           "bitwise_equal": same, "artifact_save_s": save_s})
     if not all(same.values()):
@@ -2386,10 +2542,11 @@ def phase_dist(solve_rec: dict, solve_w) -> dict:
     return launches
 
 
-def _time_ms(fn, reps: int = 5) -> float:
+def _time_ms(fn, reps: int = 5, warm: bool = True) -> float:
     import torch
 
-    fn()  # warm-up
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -2453,11 +2610,14 @@ def main_path_inputs():
 
 
 def _time_case(fn, plain_fn, bound: dict) -> dict:
-    """Time a kernel and its plain version, then hold one against the other."""
+    """Time a kernel (median of 5) and its plain version (median of 3,
+    after the warm-up whose result the kernel's is held against)."""
     import torch
 
-    ms, plain_ms = _time_ms(fn), _time_ms(plain_fn)
-    err, ok = _err(fn(), plain_fn(), "f32")
+    want = plain_fn()  # also the plain version's warm-up
+    ms, plain_ms = _time_ms(fn), _time_ms(plain_fn, reps=3, warm=False)
+    err, ok = _err(fn(), want, "f32")
+    del want
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "ok": ok}
 
@@ -2465,9 +2625,9 @@ def _time_case(fn, plain_fn, bound: dict) -> dict:
 def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: list[dict]
                ) -> list[dict]:
     """Time every kernel at its main-path shapes.  ``launches`` holds each
-    path's counts (``"solve"``, ``"tune"``, ``"refit"``, and phase serve's
-    models ``"serve taxi"``, ``"serve multikernel"``, ``"serve heads"``:
-    each path's reset and read), ``weights`` the refit's combination,
+    path's counts (``"solve"``, ``"tune"``, ``"refit"``, phase ova's
+    ``"ova <classes>"``, and phase serve's models ``"serve taxi"``,
+    ``"serve multikernel"``, ``"serve heads"``: each path's reset and read), ``weights`` the refit's combination,
     ``tune_wc`` the tune's (q, C) per-column weights and ``baselines``
     phase ``baselines``' records (their launches and the sketch's time).
     One row per (kernel, path shape); ``path`` names the run whose count
@@ -2591,26 +2751,29 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
                       lambda: ref.kernel_matvec_multi(q, x, z, sg, w_t, kernels=ks),
                       _bound_multi(SMALL_M, N_TRAIN, D, 1, ks, "matvec"))},
     ]
-    # kernel_matvec with OVA_HEADS heads on the column path's narrow width:
-    # a one-vs-all G_B, and a serving bucket of SMALL_M queries (no split at
-    # t > 1: one row tile, so few SMs work)
-    z_ova = torch.randn((N_TRAIN, OVA_HEADS), generator=torch.Generator(device="cuda").manual_seed(15),
-                        device="cuda")
+    # kernel_matvec with t heads on its multi-column sweep: a one-vs-all G_B
+    # of 2, 4, 8 and OVA_HEADS classes (phase ova's paths), and serving
+    # buckets of the OVA_HEADS-head model (split over n)
+    gen_ova = torch.Generator(device="cuda").manual_seed(15)
+    for t in OVA_CLASSES:
+        z_ova = torch.randn((N_TRAIN, t), generator=gen_ova, device="cuda")
+        rows.append(
+            {**mv_id, "case": f"one-vs-all G_B (t = {t})", "path": f"ova {t}",
+             "launches": launches[f"ova {t}"]["kernel_matvec"], "shape": [BLOCK, N_TRAIN, D, t],
+             **_time_case(lambda: kernel_matvec_cuda(xb, x, z_ova, kernel="rbf", sigma=SIGMA,
+                                                     precision="f32"),
+                          lambda: ref.kernel_matvec(xb, x, z_ova, SIGMA, kernel="rbf"),
+                          _bound(BLOCK, N_TRAIN, D, t))})
+    # z_ova holds OVA_HEADS columns now: OVA_CLASSES ends with it
     heads_path = {"path": "serve heads", "launches": launches["serve heads"]["kernel_matvec"]}
-    rows += [
-        {**mv_id, "case": f"one-vs-all G_B (t = {OVA_HEADS})", **heads_path,
-         "shape": [BLOCK, N_TRAIN, D, OVA_HEADS],
-         **_time_case(lambda: kernel_matvec_cuda(xb, x, z_ova, kernel="rbf", sigma=SIGMA,
-                                                 precision="f32"),
-                      lambda: ref.kernel_matvec(xb, x, z_ova, SIGMA, kernel="rbf"),
-                      _bound(BLOCK, N_TRAIN, D, OVA_HEADS))},
-        {**mv_id, "case": f"serve bucket 64 (t = {OVA_HEADS})", **heads_path,
-         "shape": [SMALL_M, N_TRAIN, D, OVA_HEADS],
-         **_time_case(lambda: kernel_matvec_cuda(q, x, z_ova, kernel="rbf", sigma=SIGMA,
-                                                 precision="f32"),
-                      lambda: ref.kernel_matvec(q, x, z_ova, SIGMA, kernel="rbf"),
-                      _bound(SMALL_M, N_TRAIN, D, OVA_HEADS))},
-    ]
+    for m_q in (8, SMALL_M, 1024):
+        rows.append(
+            {**mv_id, "case": f"serve bucket {m_q} (t = {OVA_HEADS})", **heads_path,
+             "shape": [m_q, N_TRAIN, D, OVA_HEADS],
+             **_time_case(lambda: kernel_matvec_cuda(xb[:m_q], x, z_ova, kernel="rbf",
+                                                     sigma=SIGMA, precision="f32"),
+                          lambda: ref.kernel_matvec(xb[:m_q], x, z_ova, SIGMA, kernel="rbf"),
+                          _bound(m_q, N_TRAIN, D, OVA_HEADS))})
     del z_ova
     # the baselines' new shapes: pcg-nystrom's sketch at t = 100 (timed at
     # G_B's 50,000 rows, beside the sketch's one 10^6-row launch from the
@@ -3556,6 +3719,7 @@ def main() -> int:
     baseline_recs = phase_baselines()
     phase_estimators(solve_rec, solve_w, tune_result)
     phase_sap()
+    ova_launches = phase_ova()
     serve_recs = phase_serve(solve_w, tune_result.best, refit_w)
     dist_launches = phase_dist(solve_rec, solve_w)
     del solve_w, refit_w
@@ -3563,7 +3727,8 @@ def main() -> int:
     launches = {"solve": solve_rec["launches"], "tune": tune_rec["launches"],
                 "refit": refit_rec["launches"],
                 **{f"serve {k}": r["launches"] for k, r in zip(
-                    ("taxi", "multikernel", "heads"), serve_recs)}, **dist_launches}
+                    ("taxi", "multikernel", "heads"), serve_recs)}, **ova_launches,
+                **dist_launches}
     rows = phase_time(launches, tuple(tune_result.best["weights"]),
                       _tune_weight_cols(tune_result), baseline_recs)
     phase_lm(smi)

@@ -1,7 +1,7 @@
 // Shared pieces of the pairwise-kernel CUDA kernels (kernel_matvec.cu,
 // kernel_block.cu, kernel_multi.cu): the kernel ids, the staging of A / B
-// and V tiles into shared memory, the per-family base tile, the elementwise
-// kernel maps, the bf16 round and the row groups' shuffle reduction.
+// tiles into shared memory, the per-family base tile, the elementwise
+// kernel maps and the bf16 round.
 //
 // Operands arrive as float or __nv_bfloat16 (T).  They are widened to f32
 // when staged in shared memory (bf16 -> f32 is exact), so distances, norms
@@ -34,9 +34,8 @@ __host__ __device__ constexpr int family_of(int kid) {
 
 __host__ __device__ constexpr bool needs_norms(int fam) { return fam == F_L2 || fam == F_COS; }
 
-// Tiling shared by kernel_block.cu and kernel_matvec.cu's loop for t <= 8
-// (DC is also the column path's slab width, sweep_cols.cuh): a block of 256
-// threads owns TM rows of A
+// The tiling of kernel_block.cu (DC is also the column path's slab width,
+// sweep_cols.cuh): a block of 256 threads owns TM rows of A
 // and walks B in tiles of TN rows.  Thread (rg, lane) = (tid / LANES,
 // tid % LANES) computes the RM consecutive rows rg*RM .. rg*RM+3 against
 // the JN consecutive columns lane*JN .. lane*JN+3 of a tile.  The feature
@@ -92,30 +91,6 @@ __device__ __forceinline__ void commit_b(float (*s)[TN], const float (&pb)[PB], 
     const int idx = threadIdx.x + r * THREADS;
     const int k = idx / TN;
     if (k < kc) s[k][idx % TN] = pb[r];
-  }
-}
-
-// V values of rows [j0, j0 + TN) x columns [c0, c0 + tc) of a row-major
-// (n, t) matrix, prefetched into registers (fetch_v), then written to
-// Vs[c][row] (commit_v); PV = ceil(TN * TC / THREADS) values a thread.
-template <typename T, int TC, int PV>
-__device__ __forceinline__ void fetch_v(float (&pv)[PV], const T* __restrict__ v, int64_t j0,
-                                        int64_t n, int t, int c0, int tc) {
-#pragma unroll
-  for (int r = 0; r < PV; ++r) {
-    const int idx = threadIdx.x + r * THREADS;
-    const int jj = idx % TN, c = idx / TN;
-    const int64_t g = j0 + jj;
-    pv[r] = (c < tc && g < n) ? to_f32(v[g * t + c0 + c]) : 0.0f;
-  }
-}
-
-template <int TC, int PV>
-__device__ __forceinline__ void commit_v(float (*Vs)[TN], const float (&pv)[PV]) {
-#pragma unroll
-  for (int r = 0; r < PV; ++r) {
-    const int idx = threadIdx.x + r * THREADS;
-    if (idx < TN * TC) Vs[idx / TN][idx % TN] = pv[r];
   }
 }
 
@@ -226,20 +201,6 @@ __device__ __forceinline__ float kernel_map(float base, const MapConst& c) {
 // x rounded to the nearest bf16 (a bf16 matmul operand), back in f32.
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-// Sum o[i][c] over the LANES threads of a row group (consecutive lanes of
-// one warp) with a fixed butterfly of shuffles: no atomics, so the result
-// is the same from run to run.
-template <int R, int C>
-__device__ __forceinline__ void reduce_lanes(float (&o)[R][C]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int off = LANES / 2; off > 0; off >>= 1)
-        o[i][c] += __shfl_xor_sync(0xffffffffu, o[i][c], off);
 }
 
 }  // namespace pk

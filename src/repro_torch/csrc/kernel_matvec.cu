@@ -10,22 +10,52 @@
 // n = 10^6, d = 9, t = 1) the work is ~1.2e12 f32 operations plus 5e10 exp,
 // while the bytes (B is 36 MB) are negligible.  The time is in issued
 // instructions per pair, not in memory (PERF.md has the measurements).
+// Three routes, chosen by t (and, at t = 1 and 2 <= t <= 16, a split of n
+// up to 4096 rows of A):
 //
-// t == 1 (G_B, the residual pass, the prediction) runs on the t = 1 sweep of
-// sweep_t1.cuh: B packed once a launch with its norms and v ([b, ||b||^2, v]
-// rows, zero past n), staged by cp.async in 256-row tiles, the block's 64
-// rows of A in registers (two a lane), each B row a broadcast read by a
-// whole warp, whole row sums per thread added over the 8 warps in a fixed
-// order.  A pair of rbf costs d FMAs (the dot product, started at
-// -||a||^2 / 2), one FMA and one min for the scaled, clamped exponent (the
-// pack stores rs ||b||^2, rs = -log2(e) / (2 sigma^2), so the exponent is
-// rs ||b||^2 - 2 rs acc and exp(x) = ex2(x log2 e) costs nothing more), the
-// ex2 (one special-function operation a pair) and one FMA with v.
+// t == 1 (G_B, the residual pass, the prediction, a single-head serving
+// bucket) runs on the t = 1 sweep of sweep_t1.cuh: B packed once a launch
+// with its norms and v ([b, ||b||^2, v] rows, zero past n), staged by
+// cp.async in 256-row tiles, the block's 64 rows of A in registers (two a
+// lane), each B row a broadcast read by a whole warp, whole row sums per
+// thread added over the 8 warps in a fixed order.  A pair of rbf costs d
+// FMAs (the dot product, started at -||a||^2 / 2), one FMA and one min for
+// the scaled, clamped exponent (the pack stores rs ||b||^2, rs = -log2(e) /
+// (2 sigma^2), so the exponent is rs ||b||^2 - 2 rs acc and exp(x) =
+// ex2(x log2 e) costs nothing more), the ex2 (one special-function
+// operation a pair) and one FMA with v.
 //
-// t > 8 (pcg-nystrom's and the single-kernel tune's sketches K Omega, the
-// tune's CG apply over its lam x fold columns, a one-vs-all G_B, residual
-// pass and prediction with t heads, Falkon's and EigenPro's multi-head
-// sweeps) runs on the column path of sweep_cols.cuh, shared with the
+// 2 <= t <= 16 (one-vs-all with up to 16 classes: its G_B, residual pass
+// and prediction; Falkon's and EigenPro's sweeps with t heads; a t-head
+// serving bucket; the distributed primitives at t = 8) runs on the same
+// sweep at W value columns (kernel_matvec_tk_kernel, W = tk_width(t): 2, 4,
+// 8, 12 or 16): the pack writes [b, ||b||^2, v_0 .. v_{W-1}] rows (V's
+// columns past t zero), each pair's kernel value is formed once as at
+// t = 1 and used in W FMAs into the thread's 2 x W row sums, and a B row's
+// W values are W / 4 broadcast float4 loads from the staged tile, shared by
+// the lane's two rows.  What bounds it is still the instructions a pair:
+// at d = 9 the t = 1 sweep's ~13 plus W - 1 FMAs and the value loads, so
+// the time grows with W, not with t.  Up to 4096 rows of A it splits B over
+// grid.y exactly as at t = 1 (split_of: S from n and the feature route,
+// never from m or t), writes (S, m, t) partials after the packed B, and
+// reduce_splits adds each value's S partials in split order, so a row's
+// result is bitwise the same whatever rows travel with it.  It replaced
+// the first port's 8-column loop at t <= 8 and the column path at
+// 9 <= t <= 16.  Measured in one run (tools/time_torch_kernels.py on the
+// code before and after the change; H100 80GB HBM3 at 700 W; rbf, d = 9,
+// f32) at the one-vs-all G_B, 50,000 x 10^6: the sweep 34.0, 38.5, 51.1, 61.1
+// and 68.8 ms at t = 2, 4, 8, 10 and 16; the loop 135.6, 135.5 and 139.9
+// ms at t = 2, 4 and 8; the column path 236.1 ms at t = 10 and 233.8 at
+// 16 (234.4 at 20).  So the sweep wins above 4096 rows too and takes
+// 2 <= t <= 16 at every m.  A 64-query bucket at t = 10: 0.33 ms (the
+// column path: 59.0 ms, 2 of the 132 SMs busy, no split).  Its inner loop
+// (tools/sass_torch_loops.py, a group of 16 pairs): 374 instructions at
+// W = 8 (288 FFMA, 48 LDS, 16 MUFU), 446 at W = 12, 522 at W = 16, against
+// the t = 1 sweep's 239 (176 FFMA, 24 LDS, 16 MUFU).
+//
+// t > 16 (pcg-nystrom's and the single-kernel tune's sketches K Omega, the
+// tune's CG apply over its lam x fold columns, a one-vs-all with more than
+// 16 classes) runs on the column path of sweep_cols.cuh, shared with the
 // weighted and stacked matvecs, with one kernel fixed at compile time
 // (kernel_matvec_cols_kernel): no table, no weight rows, one 16 x 32 kernel
 // tile a B tile.  Each pair's kernel value is formed once per 16-row B tile
@@ -38,139 +68,35 @@
 // on the t = 1 sweep: a pair's map is one add, one FMA, one min and the
 // ex2.  Bound: the t FMAs a pair at the FP32 rate (100 at the sketch's
 // rank 100), above the ~2d + 6 operations of the distance and the map.
-//
-// 2 <= t <= 8 runs on the first port's loop (kernel_matvec_kernel), one
-// chunk of TC = 8 columns: a block per 64-row tile of A walks all of B and
-// V in 64-row tiles, d in 32-wide slabs loaded into registers a slab ahead
-// and staged feature-major, each thread a 4 x 4 register tile of the
-// distance and 4 rows x 8 output sums, the 16 threads of a row reduced by a
-// fixed butterfly of shuffles.  Below 9 columns the column path's work per
-// 16-row B tile that does not scale with the columns (the copies of B and
-// V, three barriers, the d loop and the maps for a 32-row block) costs more
-// than the 8-column loop: at the solve's G_B shape (50,000 x 10^6, rbf) the
-// loop takes ~135 ms up to t = 8 and ~270 ms from 9 to 16, the column path
-// ~235 ms at t = 8 and 16 (PERF.md).
-// The wrapper pads V with zero columns to a multiple of 4 at t > 1, so its
+// The wrapper pads V with zero columns to a multiple of 4 there, so its
 // rows are copied in 16-byte units.
-// A small m at t = 1 (a serving bucket of 8 to 4096 queries) splits n
-// across grid.y (sweep_t1.cuh): S ranges of B, an (S, m) partials buffer,
-// and a small kernel that adds each row's S partials in order.  At t > 1 a
-// small m still gives fewer blocks than the 132 SMs.
 //
 // Precision: with bf16 operands the kernel value is rounded to bf16 before
 // its product with V (the TPU kernel's bf16 matmul operand); the product of
-// two bf16 values is exact in f32 and accumulates in f32.  At t > 1 the
-// wrapper passes the bf16-rounded operands widened to f32 (exact).
+// two bf16 values is exact in f32 and accumulates in f32.  The sweeps read
+// bf16 A, B and V as they are; the column path gets them widened to f32
+// (exact) by the wrapper.
 //
-// Deterministic: no atomics; the t = 1 sweep adds its warps' row sums in
-// warp order, the loop reduces a row's 16 partial sums by a fixed
-// butterfly, and on the column path a thread owns whole output values.
+// Deterministic: no atomics; the sweeps add their warps' row sums in warp
+// order and the splits' partials in split order, and on the column path a
+// thread owns whole output values.
+//
+// Built in PK_PARTS parts that compile in parallel and link into one
+// library (kernels/_build.py reads the count from the #define below):
+// -DPK_PART=0 is the t = 1 sweep, the column path and the C entry points,
+// -DPK_PART=i > 0 the multi-column sweep at width TK_WIDTHS[i - 1].
+#define PK_PARTS 6
+#ifndef PK_PART
+#error "kernel_matvec.cu is built in parts: -DPK_PART=0 .. PK_PARTS - 1 (kernels/_build.py)"
+#endif
+#if PK_PART > 0
+#define PK_SWEEP_NO_EXPORTS  // part 0 exports sweep_t1.cuh's sizes
+#endif
 #include "kernel_common.cuh"
 #include "sweep_cols.cuh"
 #include "sweep_t1.cuh"
 
 using namespace pk;
-
-// 2 <= t <= TC: the first port's loop, a block per 64-row tile of A for all
-// of V's columns (A, B and V f32; BF16: holding bf16-rounded values, and
-// each K value is rounded to bf16 before its product with V).
-constexpr int TC = 8;
-
-template <bool BF16, int KID>
-__global__ void __launch_bounds__(THREADS, 1)
-kernel_matvec_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                     const float* __restrict__ v, float* __restrict__ out, int64_t m, int64_t n,
-                     int d, int t, float sigma) {
-  constexpr int FAM = family_of(KID);
-  constexpr bool NORMS = needs_norms(FAM);
-  constexpr int PV = (TN * TC + THREADS - 1) / THREADS;
-  __shared__ __align__(16) float As[DC][TM];
-  __shared__ __align__(16) float Bs[DC][TN];
-  __shared__ __align__(16) float Vs[TC][TN];
-  __shared__ __align__(16) float a2[TM];
-  __shared__ __align__(16) float b2[TN];
-  const int rg = threadIdx.x / LANES, lane = threadIdx.x % LANES;
-  const int64_t r0 = (int64_t)blockIdx.x * TM;
-  const int c0 = blockIdx.y * TC;
-  const int tc = min(TC, t - c0);
-  const MapConst mc = map_const(sigma);
-  const int ns = (d + DC - 1) / DC;  // slabs per B tile
-  const bool a_once = ns == 1;       // the whole A tile fits one slab: stage it once
-
-  if (NORMS) a_sq_norms(a2, a, r0, m, d);
-  if (a_once) stage_a(As, a, r0, m, d, 0, d);
-
-  // the slab in flight: rows [f_j0, f_j0 + TN), features from f_slab * DC
-  float pb[PB], pv[PV];
-  int64_t f_j0 = 0;
-  int f_slab = 0;
-  auto fetch_next = [&]() {
-    const int k0 = f_slab * DC;
-    fetch_b(pb, b, f_j0, n, d, k0, min(DC, d - k0));
-    if (f_slab == 0) fetch_v<float, TC, PV>(pv, v, f_j0, n, t, c0, tc);
-    if (++f_slab == ns) {
-      f_slab = 0;
-      f_j0 += TN;
-    }
-  };
-  if (n > 0) fetch_next();
-
-  float o[RM][TC] = {};
-  for (int64_t j0 = 0; j0 < n; j0 += TN) {
-    float acc[RM][JN] = {};
-    for (int slab = 0; slab < ns; ++slab) {
-      const int k0 = slab * DC, kc = min(DC, d - k0);
-      __syncthreads();  // readers of the previous slab / tile are done
-      commit_b(Bs, pb, kc);
-      if (slab == 0) commit_v<TC, PV>(Vs, pv);
-      if (!a_once) stage_a(As, a, r0, m, d, k0, kc);
-      __syncthreads();
-      if (f_j0 < n) fetch_next();  // in flight during the arithmetic below
-      if (NORMS) b_sq_norms(b2, Bs, kc, slab == 0);
-      accumulate_slab<FAM>(acc, As, Bs, rg, lane, kc);
-    }
-    if (NORMS) __syncthreads();  // b2 complete
-
-    const int cols = n - j0 < TN ? (int)(n - j0) : TN;  // live columns of this tile
-    const float4 a24 = *reinterpret_cast<const float4*>(&a2[rg * RM]);
-    const float4 b24 = *reinterpret_cast<const float4*>(&b2[lane * JN]);
-    const float av[RM] = {a24.x, a24.y, a24.z, a24.w};
-    const float bv[JN] = {b24.x, b24.y, b24.z, b24.w};
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < JN; ++j) {
-        float kv;
-        if (KID == K_RBF) {
-          // exp(-max(a2 + b2 - 2 acc, 0) / (2 sigma^2)) with the scale folded
-          // into the norms: one add, one fma, one min and the exponential
-          kv = ex2(fminf(fmaf(acc[i][j], -2.0f * mc.rbf_scale,
-                              mc.rbf_scale * av[i] + mc.rbf_scale * bv[j]), 0.0f));
-        } else {
-          kv = kernel_map<KID>(base_value<FAM>(acc[i][j], av[i], bv[j]), mc);
-        }
-        if (BF16) kv = round_bf16(kv);
-        acc[i][j] = lane * JN + j < cols ? kv : 0.0f;
-      }
-#pragma unroll
-    for (int c = 0; c < TC; ++c) {
-      const float4 v4 = *reinterpret_cast<const float4*>(&Vs[c][lane * JN]);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-        o[i][c] = fmaf(acc[i][3], v4.w, fmaf(acc[i][2], v4.z,
-                  fmaf(acc[i][1], v4.y, fmaf(acc[i][0], v4.x, o[i][c]))));
-    }
-  }
-
-  reduce_lanes(o);
-  if (lane == 0)
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int64_t row = r0 + rg * RM + i;
-      if (row < m)
-        for (int c = 0; c < tc; ++c) out[row * t + c0 + c] = o[i][c];
-    }
-}
 
 // Blocks an SM must hold: three (80 registers) for the register path at 9
 // feature slots; two (128 registers) where the 16-wide A tile, the slab loop
@@ -179,11 +105,31 @@ __host__ __device__ constexpr int t1_min_blocks(int kid, int nf, bool slab) {
   return nf == 9 && !slab && kid != K_COSINE ? 3 : 2;
 }
 
+// The kernel value of pair (r, j) of a sweep group (bf16: rounded to bf16,
+// the TPU kernel's matmul operand).  For rbf, exp(-max(||a - b||^2, 0) /
+// (2 sigma^2)) as ex2(rs ||a - b||^2), rs = -log2(e) / (2 sigma^2) < 0: acc
+// = a.b - a2 / 2 and the packed norm is rs b2, so rs ||a - b||^2 = rs b2 -
+// 2 rs acc (m2rs = -2 rs).  One special-function operation a pair for rbf
+// and laplacian, two for matern52 (sqrt.approx and ex2).
+template <int KID, bool BF16>
+__device__ __forceinline__ float pair_value(float acc, float acc1, float a2, float b2,
+                                            const MapConst& mc, float m2rs) {
+  constexpr int FAM = family_of(KID);
+  float kv;
+  if (KID == K_RBF) {
+    kv = ex2(fminf(fmaf(acc, m2rs, b2), 0.0f));
+  } else {
+    const float base = FAM == F_L2   ? fmaxf(fmaf(-2.0f, acc, b2), 0.0f)
+                     : FAM == F_L1   ? acc1
+                                     : base_value<FAM>(acc, a2, b2);
+    kv = t1::kernel_map_t1<KID>(base, mc);
+  }
+  return BF16 ? round_bf16(kv) : kv;
+}
+
 // out (m) = K(A, B) @ v, t == 1, on the t = 1 sweep over the packed B (bp:
 // P floats a row, n_pad rows), block (x, y) over rows [y span, +span) of it
-// (one range: span = n_pad; split: `out` is the (S, m) partials).  One
-// special-function operation a pair for rbf and laplacian, two for
-// matern52 (sqrt.approx and ex2).
+// (one range: span = n_pad; split: `out` is the (S, m) partials).
 template <typename T, int KID, int NF, bool SLAB>
 __global__ void __launch_bounds__(t1::THREADS, t1_min_blocks(KID, NF, SLAB))
 kernel_matvec_t1_kernel(const T* __restrict__ a, const float* __restrict__ bp,
@@ -203,19 +149,7 @@ kernel_matvec_t1_kernel(const T* __restrict__ a, const float* __restrict__ bp,
         for (int j = 0; j < t1::J; ++j) {
 #pragma unroll
           for (int r = 0; r < t1::R; ++r) {
-            float kv;
-            if (KID == K_RBF) {
-              // exp(-max(||a - b||^2, 0) / (2 sigma^2)) as ex2(rs ||a - b||^2),
-              // rs = -log2(e) / (2 sigma^2) < 0: acc = a.b - a2 / 2 and the
-              // packed norm is rs b2, so rs ||a - b||^2 = rs b2 - 2 rs acc
-              kv = ex2(fminf(fmaf(acc[r][j], m2rs, b2[j]), 0.0f));
-            } else {
-              const float base = FAM == F_L2   ? fmaxf(fmaf(-2.0f, acc[r][j], b2[j]), 0.0f)
-                               : FAM == F_L1   ? acc1[r][j]
-                                               : base_value<FAM>(acc[r][j], a2[r], b2[j]);
-              kv = t1::kernel_map_t1<KID>(base, mc);
-            }
-            if (BF16) kv = round_bf16(kv);
+            const float kv = pair_value<KID, BF16>(acc[r][j], acc1[r][j], a2[r], b2[j], mc, m2rs);
             o[r] = fmaf(kv, vv[j], o[r]);
           }
         }
@@ -243,6 +177,136 @@ static cudaError_t launch_t1(const T* a, const T* b, const T* v, float* out, int
 #undef PK_T1
   if (err != cudaSuccess || sp.s == 1) return err;
   return t1::launch_reduce(part, out, m, sp.s, false, s);
+}
+
+// ---------------------------------------------------------------------------
+// 2 <= t <= 16: the multi-column sweep (sweep_t1.cuh at W value columns)
+// ---------------------------------------------------------------------------
+
+// The widths W the sweep is built at; a launch of t columns takes the
+// smallest W >= t (the pack zero-fills V's columns t .. W - 1).
+constexpr int TK_WIDTHS[] = {2, 4, 8, 12, 16};
+constexpr int TK_PARTS = sizeof(TK_WIDTHS) / sizeof(TK_WIDTHS[0]);
+constexpr int TK_MAX = TK_WIDTHS[TK_PARTS - 1];
+static_assert(PK_PARTS == 1 + TK_PARTS, "kernel_matvec.cu is built in 1 + TK_PARTS parts");
+static_assert(PK_PART >= 0 && PK_PART < PK_PARTS, "PK_PART is out of range");
+constexpr int tk_width(int t) {
+  for (const int w : TK_WIDTHS)
+    if (t <= w) return w;
+  return TK_MAX;
+}
+
+// Blocks an SM must hold: three (80 registers) at 9 feature slots and up to
+// 4 columns (as t1_min_blocks); two (128 registers) for the 2 x W row sums
+// of the wider sweeps, the 16-wide A tile, the slab loop and cosine.
+__host__ __device__ constexpr int tk_min_blocks(int kid, int nf, bool slab, int w) {
+  return w <= 4 ? t1_min_blocks(kid, nf, slab) : 2;
+}
+
+// out (m, t) = K(A, B) @ V, 2 <= t <= W, on the sweep over the packed B (bp:
+// P floats a row ending in the W values, n_pad rows), block (x, y) over
+// rows [y span, +span) of it (split: `out` is the (S, m, t) partials).
+// Each pair's kernel value is formed once (pair_value, as at t = 1), then
+// used in W FMAs into the thread's two rows x W sums; a B row's values are
+// W / 4 broadcast float4 loads from the staged tile (a float2 at W = 2).
+template <typename T, int KID, int NF, bool SLAB, int W>
+__global__ void __launch_bounds__(t1::THREADS, tk_min_blocks(KID, NF, SLAB, W))
+kernel_matvec_tk_kernel(const T* __restrict__ a, const float* __restrict__ bp,
+                        float* __restrict__ out, int64_t m, int64_t n_pad, int64_t span, int d,
+                        int P, int t, float sigma) {
+  constexpr int FAM = family_of(KID);
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int SP = t1::row_floats(NF, W);  // floats a staged row; its values from SP - W
+  extern __shared__ __align__(16) float t1_smem[];
+  const MapConst mc = map_const(sigma);
+  const float m2rs = -2.0f * mc.rbf_scale;
+  float o[t1::R][W] = {};
+  t1::sweep<NF, SLAB, FAM != F_L1, FAM == F_L1, W>(
+      a, bp, m, d, P, t1::range_begin(span), t1::range_end(span, n_pad), FAM == F_L2, t1_smem,
+      [&](float (&acc)[t1::R][t1::J], float (&acc1)[t1::R][t1::J], const float (&a2)[t1::R],
+          const float (&b2)[t1::J], const float* grp) {
+#pragma unroll
+        for (int j = 0; j < t1::J; ++j) {
+          float kv[t1::R];
+#pragma unroll
+          for (int r = 0; r < t1::R; ++r)
+            kv[r] = pair_value<KID, BF16>(acc[r][j], acc1[r][j], a2[r], b2[j], mc, m2rs);
+          const float* vr = grp + j * SP + (SP - W);
+          if constexpr (W == 2) {
+            const float2 x = *reinterpret_cast<const float2*>(vr);
+#pragma unroll
+            for (int r = 0; r < t1::R; ++r) {
+              o[r][0] = fmaf(kv[r], x.x, o[r][0]);
+              o[r][1] = fmaf(kv[r], x.y, o[r][1]);
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < W; c += 4) {
+              const float4 x = *reinterpret_cast<const float4*>(vr + c);
+#pragma unroll
+              for (int r = 0; r < t1::R; ++r) {
+                o[r][c] = fmaf(kv[r], x.x, o[r][c]);
+                o[r][c + 1] = fmaf(kv[r], x.y, o[r][c + 1]);
+                o[r][c + 2] = fmaf(kv[r], x.z, o[r][c + 2]);
+                o[r][c + 3] = fmaf(kv[r], x.w, o[r][c + 3]);
+              }
+            }
+          }
+        }
+      });
+  t1::write_cols<W>(o, t1_smem, out, m, t);
+}
+
+template <typename T, int KID, int W>
+static cudaError_t launch_tk(const T* a, const T* b, const T* v, float* out, int64_t m, int64_t n,
+                             int d, int t, float sigma, float* scratch, cudaStream_t s) {
+  const float s2 = sigma * sigma;
+  const float norm_scale = KID == K_RBF ? -kLog2e / (2.0f * s2) : 1.0f;  // as launch_t1
+  cudaError_t err = t1::launch_pack<W>(b, v, scratch, n, d, norm_scale, s, t);
+  if (err != cudaSuccess) return err;
+  const t1::PackShape ps = t1::pack_shape(n, d, W);
+  const t1::Split sp = t1::split_of(m, n, d);
+  float* part = scratch + t1::pack_floats(n, d, W);  // the (S, m, t) partials of a split
+  float* dst = sp.s > 1 ? part : out;
+#define PK_TK(NF, SLAB)                                                                       \
+  err = t1::launch_sweep(kernel_matvec_tk_kernel<T, KID, NF, SLAB, W>, t1::sweep_grid(m, sp), \
+                         t1::smem_bytes(NF, SLAB, W), s, a, (const float*)scratch, dst, m,    \
+                         ps.rows, sp.span, d, ps.stride, t, sigma)
+  PK_T1_DISPATCH_NF(d, PK_TK)
+#undef PK_TK
+  if (err != cudaSuccess || sp.s == 1) return err;
+  return t1::launch_reduce(part, out, m * t, sp.s, false, s);
+}
+
+// The arguments of one kernel_matvec launch, as kernel_matvec_launch takes
+// them.
+struct LaunchArgs {
+  const void *a, *b, *v;
+  float* out;
+  int64_t m, n;
+  int d, t;
+  float sigma;
+  int kernel_id, bf16;
+  float* scratch;
+  cudaStream_t stream;
+};
+
+// The sweep at width W for every kernel and both precisions (A, B and V as
+// __nv_bfloat16 with bf16 != 0, else float).  Each width is a part of its
+// own (PK_PART below).
+template <int W>
+int launch_tk_width(const LaunchArgs& x) {
+  cudaError_t err = cudaSuccess;
+#define PK_LAUNCH(T, KID)                                                                     \
+  err = launch_tk<T, KID, W>((const T*)x.a, (const T*)x.b, (const T*)x.v, x.out, x.m, x.n,    \
+                             x.d, x.t, x.sigma, x.scratch, x.stream)
+  if (x.bf16) {
+    PK_DISPATCH_KERNEL(x.kernel_id, PK_LAUNCH, __nv_bfloat16)
+  } else {
+    PK_DISPATCH_KERNEL(x.kernel_id, PK_LAUNCH, float)
+  }
+#undef PK_LAUNCH
+  return (int)err;
 }
 
 // The kernel set of kernel_matvec's column path: kernel KID alone,
@@ -314,20 +378,44 @@ static cudaError_t launch_cols(const float* a, const float* b, const float* v, f
   return cudaGetLastError();
 }
 
+#if PK_PART > 0
+// A part of the library: the sweep at one width.
+template int launch_tk_width<TK_WIDTHS[PK_PART - 1]>(const LaunchArgs&);
+#else
+// Part 0: the widths are instantiated in the other parts.
+extern template int launch_tk_width<2>(const LaunchArgs&);
+extern template int launch_tk_width<4>(const LaunchArgs&);
+extern template int launch_tk_width<8>(const LaunchArgs&);
+extern template int launch_tk_width<12>(const LaunchArgs&);
+extern template int launch_tk_width<16>(const LaunchArgs&);
+
+// The widest t that runs on the multi-column sweep; the wrapper sends wider
+// V to the column path as f32 padded to a multiple of 4 columns.
+extern "C" int kernel_matvec_sweep_t_max() { return TK_MAX; }
+
+// Floats of the scratch a launch of m rows and t columns needs for B of n
+// rows and d features: t = 1, the t = 1 sweep's (sweep_t1_scratch_floats);
+// 2 <= t <= 16, the packed B with its W = tk_width(t) values a row, then
+// the (S, m, t) partials of a launch split over n; t > 16, none.
+extern "C" long long kernel_matvec_scratch_floats(long long m, long long n, int d, int t) {
+  if (m < 0 || n < 0 || d < 1 || t < 1 || t > TK_MAX) return 0;
+  return (long long)t1::scratch_floats(m, n, d, t == 1 ? 1 : tk_width(t), t);
+}
+
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// d, t >= 1.  t == 1: bf16 != 0 reads A, B and V as __nv_bfloat16, else as
-// float, and needs `scratch`: sweep_t1_scratch_floats(m, n, d) floats of
-// device memory.  t > 1: A, B and V are float (bf16 != 0: holding
-// bf16-rounded values, and K is rounded to bf16 before its product with V);
-// `scratch` is unused.
+// d, t >= 1.  t <= 16: bf16 != 0 reads A, B and V as __nv_bfloat16, else
+// as float, and needs `scratch`: kernel_matvec_scratch_floats(m, n, d, t)
+// floats of device memory; V is (n, t).  t > 16: A, B and V are float
+// (bf16 != 0: holding bf16-rounded values, and K is rounded to bf16 before
+// its product with V); `scratch` is unused.
 extern "C" int kernel_matvec_launch(const void* a, const void* b, const void* v, void* out,
                                     long long m, long long n, int d, int t, float sigma,
                                     int kernel_id, int bf16, void* scratch, void* stream) {
   if (m < 0 || n < 0 || d < 1 || t < 1) return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
   if (t == 1) {
-    cudaError_t err = cudaSuccess;
 #define PK_LAUNCH(T, KID)                                                                  \
   err = launch_t1<T, KID>((const T*)a, (const T*)b, (const T*)v, (float*)out, m, n, d,     \
                           sigma, (float*)scratch, s)
@@ -339,20 +427,16 @@ extern "C" int kernel_matvec_launch(const void* a, const void* b, const void* v,
 #undef PK_LAUNCH
     return (int)err;
   }
-  if (t <= TC) {  // one 8-column chunk: faster than a column block up to 8 columns
-    const dim3 grid((unsigned)((m + TM - 1) / TM));
-#define PK_LAUNCH(BF, KID)                                                                  \
-  kernel_matvec_kernel<BF, KID><<<grid, THREADS, 0, s>>>(                                   \
-      (const float*)a, (const float*)b, (const float*)v, (float*)out, m, n, d, t, sigma)
-    if (bf16) {
-      PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, true)
-    } else {
-      PK_DISPATCH_KERNEL(kernel_id, PK_LAUNCH, false)
+  if (t <= TK_MAX) {  // the multi-column sweep, at every m (the crossover in the note)
+    const LaunchArgs x{a, b, v, (float*)out, m, n, d, t, sigma, kernel_id, bf16, (float*)scratch, s};
+    switch (tk_width(t)) {
+      case 2: return launch_tk_width<2>(x);
+      case 4: return launch_tk_width<4>(x);
+      case 8: return launch_tk_width<8>(x);
+      case 12: return launch_tk_width<12>(x);
+      default: return launch_tk_width<16>(x);
     }
-#undef PK_LAUNCH
-    return (int)cudaGetLastError();
   }
-  cudaError_t err = cudaSuccess;
 #define PK_LAUNCH(BF, KID)                                                                  \
   err = launch_cols<BF, KID>((const float*)a, (const float*)b, (const float*)v, (float*)out, \
                              m, n, d, t, sigma, s)
@@ -364,3 +448,4 @@ extern "C" int kernel_matvec_launch(const void* a, const void* b, const void* v,
 #undef PK_LAUNCH
   return (int)err;
 }
+#endif

@@ -766,7 +766,7 @@ static cudaError_t pack_rows(const T* x, float* dst, int64_t rows, int d, int P,
   const int64_t padded = block_rows(rows);
   constexpr int PT = 256;
   t1::pack_b<T><<<(unsigned)((padded + PT - 1) / PT), PT, 0, s>>>(
-      x, static_cast<const T*>(nullptr), dst, rows, padded, d, P, 1.0f);
+      x, static_cast<const T*>(nullptr), dst, rows, padded, d, P, 1.0f, 1);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
 // The t = 1 sweep shared by kernel_matvec (out = K(A, B) v, kernel_matvec.cu)
 // and the weighted matvec (out = (sum_i w_i K_i(A, B)) v, kernel_multi.cu):
-// one column of V, every row of B, a block's 64 rows of A.
+// one column of V, every row of B, a block's 64 rows of A.  With a width W
+// of 2 to 16 value columns it is also kernel_matvec's multi-column sweep
+// (2 <= t <= 16; see "W columns" below).
 //
 // What bounds it on the H100: issued instructions per pair, not bytes.  At
 // the solve's G_B (50,000 x 10^6 pairs, d = 9) B is 36 MB and the work
@@ -51,6 +53,19 @@
 // whatever rows travel with it, in every bucket up to SPLIT_M.  Above
 // SPLIT_M (the solve's G_B, the residual pass, a 10^4-row prediction) the
 // row blocks fill the card and the launch is one range, as before.
+//
+// W columns.  The same sweep with W > 1 value columns (compile time; the
+// pack zero-fills V's columns past the launch's t <= W): each packed row
+// ends [.., ||b||^2, v_0 .. v_{W-1}], V 16-byte aligned (8 at W = 2), so
+// P = round_up(NF + 1 + W, 4) at d <= DCAP and round_up(d, DS) +
+// round_up(1 + W, 4) above it.  The per-row loads of the pair loop stop at
+// the norm; the caller's epilogue gets the group's rows in shared memory
+// and reads each B row's W values there (W / 4 broadcast float4 loads a
+// row, shared by a lane's two rows of A), after forming each pair's kernel
+// value once.  The thread's 2 x W row sums are added over the 8 warps in
+// warp order (write_cols), through the ring's memory; a split writes (S,
+// m, t) partials and reduce_splits adds them per value in split order.  S
+// is split_of's, whatever W and t.
 #pragma once
 
 #include <algorithm>
@@ -77,21 +92,23 @@ constexpr int SPLIT_MIN_TILES = 4; // staged tiles a range at least
 // Feature slots a launch keeps in registers (d <= DCAP): 9, the taxi data's
 // d, or 16; the slots past d are zero.
 __host__ __device__ constexpr int nf_bucket(int d) { return d <= 9 ? 9 : 16; }
-// Floats of a staged row: NF feature slots, then the norm and v in the last
-// two slots of the last 16-byte chunk.
-__host__ __device__ constexpr int row_floats(int nf) { return (nf + 2 + 3) / 4 * 4; }
+// Floats of a staged row: NF feature slots, then the norm and the W values
+// in the row's last W + 1 slots (W = 1: the last two of its last 16-byte
+// chunk).
+__host__ __device__ constexpr int row_floats(int nf, int w = 1) { return (nf + 1 + w + 3) / 4 * 4; }
 
-// The packed B of a launch: its row stride and its row count.
+// The packed B of a launch with W value columns: its row stride and its
+// row count (the rows do not depend on W).
 struct PackShape {
   int stride;
   int64_t rows;
 };
-inline PackShape pack_shape(int64_t n, int d) {
-  if (d <= DCAP) return {row_floats(nf_bucket(d)), (n + TN_REG - 1) / TN_REG * TN_REG};
-  return {(d + DS - 1) / DS * DS + 4, (n + TN_SLAB - 1) / TN_SLAB * TN_SLAB};
+inline PackShape pack_shape(int64_t n, int d, int w = 1) {
+  if (d <= DCAP) return {row_floats(nf_bucket(d), w), (n + TN_REG - 1) / TN_REG * TN_REG};
+  return {(d + DS - 1) / DS * DS + row_floats(0, w), (n + TN_SLAB - 1) / TN_SLAB * TN_SLAB};
 }
-inline int64_t pack_floats(int64_t n, int d) {
-  const PackShape s = pack_shape(n, d);
+inline int64_t pack_floats(int64_t n, int d, int w = 1) {
+  const PackShape s = pack_shape(n, d, w);
   return s.rows * s.stride;
 }
 // The ranges of packed rows a launch of m rows sweeps: S of `span` rows
@@ -111,31 +128,35 @@ inline Split split_of(int64_t m, int64_t n, int d) {
   const int64_t per = (tiles + s0 - 1) / s0;  // tiles a range
   return {(int)((tiles + per - 1) / per), per * tn};
 }
-// Floats of a t = 1 launch's scratch: the packed B, then the (S, m)
-// partials when the launch splits n.
-inline int64_t scratch_floats(int64_t m, int64_t n, int d) {
+// Floats of a launch's scratch (W value columns packed, t of them live):
+// the packed B, then the (S, m, t) partials when the launch splits n.
+inline int64_t scratch_floats(int64_t m, int64_t n, int d, int w = 1, int t = 1) {
   const Split sp = split_of(m, n, d);
-  return pack_floats(n, d) + (sp.s > 1 ? (int64_t)sp.s * m : 0);
+  return pack_floats(n, d, w) + (sp.s > 1 ? (int64_t)sp.s * m * t : 0);
 }
-// Dynamic shared memory of a sweep: the ring (ring_floats), then the warps'
-// row sums (WARPS x TM floats).
-__host__ __device__ constexpr int ring_floats(int nf, bool slab) {
-  return STAGES * (slab ? TN_SLAB : TN_REG) * row_floats(nf);
+// Dynamic shared memory of a sweep: the ring (ring_floats); at W = 1 the
+// warps' row sums follow it (WARPS x TM floats), at W > 1 they reuse it
+// (WARPS x TM x W floats, after the sweep).
+__host__ __device__ constexpr int ring_floats(int nf, bool slab, int w = 1) {
+  return STAGES * (slab ? TN_SLAB : TN_REG) * row_floats(nf, w);
 }
-inline size_t smem_bytes(int nf, bool slab) {
-  return sizeof(float) * (size_t)(ring_floats(nf, slab) + WARPS * TM);
+inline size_t smem_bytes(int nf, bool slab, int w = 1) {
+  const int ring = ring_floats(nf, slab, w);
+  return sizeof(float) * (size_t)(w == 1 ? ring + WARPS * TM : std::max(ring, WARPS * TM * w));
 }
 
-// Row r of the (n_pad, P) packed buffer from row r of B (n, d) and v (n,);
-// the norm slot holds norm_scale * ||b_r||^2.  With v null the v slot is 0
-// (the weighted block packs A and B this way, kernel_multi.cu).
-template <typename T>
+// Row r of the (n_pad, P) packed buffer from row r of B (n, d) and of V
+// (n, t), t <= W: the norm slot holds norm_scale * ||b_r||^2, the W value
+// slots V's row, zero past t.  With v null the value slots are 0 (the
+// weighted block packs A and B this way, kernel_multi.cu).
+template <typename T, int W = 1>
 __global__ void pack_b(const T* __restrict__ b, const T* __restrict__ v, float* __restrict__ out,
-                       int64_t n, int64_t rows, int d, int P, float norm_scale) {
+                       int64_t n, int64_t rows, int d, int P, float norm_scale, int t) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= rows) return;
   const bool live = row < n;
   const T* src = b + (live ? row : 0) * d;
+  const T* vrow = v + (live && v ? row : 0) * t;
   float s = 0.0f;
   if (live)
     for (int k = 0; k < d; ++k) {
@@ -143,14 +164,17 @@ __global__ void pack_b(const T* __restrict__ b, const T* __restrict__ v, float* 
       s = fmaf(x, x, s);
     }
   s *= norm_scale;
-  const float vv = live && v ? to_f32(v[row]) : 0.0f;
   float4* dst = reinterpret_cast<float4*>(out + row * P);
   for (int c = 0; c < P; c += 4) {
     float e[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int k = c + i;
-      e[i] = !live ? 0.0f : k < d ? to_f32(src[k]) : k == P - 2 ? s : k == P - 1 ? vv : 0.0f;
+      const int k = c + i, col = k - (P - W);  // col >= 0: a value slot
+      e[i] = !live             ? 0.0f
+           : k < d             ? to_f32(src[k])
+           : k == P - 1 - W    ? s
+           : col >= 0 && col < t && v ? to_f32(vrow[col])
+                               : 0.0f;
     }
     dst[c / 4] = make_float4(e[0], e[1], e[2], e[3]);
   }
@@ -193,13 +217,18 @@ __device__ __forceinline__ float kernel_map_t1(float base, const MapConst& c) {
 // kernels; a dot or cos kernel needs the raw sum).  `ring` is the
 // dynamic shared memory (STAGES tiles).  For each group of a thread's
 // R x J pairs: epi(acc, acc1, a2, b2, v) with a2 the rows' squared norms
-// (only with DOT) and b2 the B rows' norm slots (as packed: scaled).
-template <int NF, bool SLAB, bool DOT, bool L1, typename T, typename Epi>
+// (only with DOT) and b2 the B rows' norm slots (as packed: scaled); v is
+// the B rows' values at W = 1, and at W > 1 the group's first staged row
+// in shared memory (J rows of row_floats(NF, W) floats, each ending in its
+// W values).
+template <int NF, bool SLAB, bool DOT, bool L1, int W = 1, typename T, typename Epi>
 __device__ __forceinline__ void sweep(const T* __restrict__ a, const float* __restrict__ bp,
                                       int64_t m, int d, int P, int64_t j_begin, int64_t j_end,
                                       bool fold, float* ring, Epi&& epi) {
-  constexpr int SP = row_floats(NF);           // floats a staged row
+  constexpr int SP = row_floats(NF, W);        // floats a staged row
   constexpr int CH = SP / 4;                   // its 16-byte chunks
+  constexpr int NS = SP - 1 - W;               // the norm's slot
+  constexpr int CHB = W == 1 ? CH : NS / 4 + 1;  // chunks the pair loop reads: to the norm
   constexpr int TN = SLAB ? TN_SLAB : TN_REG;  // B rows a unit
   constexpr int G = TN / WARPS / J;            // groups a warp takes of a unit
   constexpr int STAGE = TN * SP;               // floats a ring buffer
@@ -257,10 +286,10 @@ __device__ __forceinline__ void sweep(const T* __restrict__ a, const float* __re
           const int c = tid + i * THREADS;
           cp_async16(dst + 4 * c, src + 4 * c);
         }
-      } else {  // DS features of each row, then the row's last chunk
+      } else {  // DS features of each row, then the row's last chunks (norm, values)
         for (int c = tid; c < TN * CH; c += THREADS) {
           const int row = c / CH, ch = c % CH;
-          const int col = ch < CH - 1 ? i_slab * DS + 4 * ch : P - 4;
+          const int col = ch < DS / 4 ? i_slab * DS + 4 * ch : P - SP + 4 * ch;
           cp_async16(dst + row * SP + 4 * ch, bp + (i_j0 + row) * P + col);
         }
       }
@@ -298,14 +327,14 @@ __device__ __forceinline__ void sweep(const T* __restrict__ a, const float* __re
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const float* row = tile + (g * J + j) * SP;
-        float bv[SP];
+        float bv[4 * CHB];
 #pragma unroll
-        for (int c = 0; c < CH; ++c) {
+        for (int c = 0; c < CHB; ++c) {
           const float4 x = *reinterpret_cast<const float4*>(row + 4 * c);
           bv[4 * c] = x.x; bv[4 * c + 1] = x.y; bv[4 * c + 2] = x.z; bv[4 * c + 3] = x.w;
         }
-        b2[j] = bv[SP - 2];
-        vv[j] = bv[SP - 1];
+        b2[j] = bv[NS];
+        if constexpr (W == 1) vv[j] = bv[SP - 1];
 #pragma unroll
         for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -314,7 +343,10 @@ __device__ __forceinline__ void sweep(const T* __restrict__ a, const float* __re
             if (L1) acc1[r][j] += fabsf(av[r][k] - bv[k]);
           }
       }
-      if (last) epi(acc, acc1, a2, b2, vv);
+      if (last) {
+        if constexpr (W == 1) epi(acc, acc1, a2, b2, vv);
+        else epi(acc, acc1, a2, b2, tile + g * J * SP);
+      }
     }
     if (++stage == STAGES) stage = 0;
     if (SLAB && ++slab == ns) slab = 0;
@@ -351,44 +383,76 @@ __device__ __forceinline__ void write_rows(const float (&o)[R], float* red, floa
   }
 }
 
-// out[row] (+)= the sum of its S partials (part: (S, m)), in split order.
-__global__ void reduce_splits(const float* __restrict__ part, float* __restrict__ out, int64_t m,
-                              int s, bool accumulate) {
-  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= m) return;
-  float sum = part[row];
-  for (int k = 1; k < s; ++k) sum += part[(int64_t)k * m + row];
-  out[row] = accumulate ? out[row] + sum : sum;
+// At W > 1: out (m, t) = the sum of the 8 warps' row sums o (R x W a
+// thread) of the block's rows, added in warp order, columns past t dropped;
+// `red` (WARPS x TM x W floats) is the ring's memory, free once every warp
+// is past its last tile.  A launch split over n writes block row
+// blockIdx.y of the (S, m, t) partials at `out`.
+template <int W>
+__device__ __forceinline__ void write_cols(const float (&o)[R][W], float* red,
+                                           float* __restrict__ out, int64_t m, int t) {
+  if (gridDim.y > 1) out += (int64_t)blockIdx.y * m * t;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  __syncthreads();  // the ring is free
+  // red[warp][c][row]: a warp's lanes write consecutive rows (no bank conflict)
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < W; ++c) red[(warp * W + c) * TM + lane + 32 * r] = o[r][c];
+  __syncthreads();
+  for (int e = tid; e < TM * W; e += THREADS) {  // e = c TM + row
+    const int row = e % TM, c = e / TM;
+    float s = red[e];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) s += red[w * TM * W + e];
+    const int64_t g = (int64_t)blockIdx.x * TM + row;
+    if (g < m && c < t) out[g * t + c] = s;
+  }
 }
 
-// Pack B and v into `scratch` (pack_floats(n, d) floats) on `stream`, the
-// norms scaled by norm_scale.
-template <typename T>
+// out[i] (+)= the sum of its S partials (part: (S, count): count = m rows
+// of t values), in split order.  Static: each library or part that
+// includes this header has its own.
+static __global__ void reduce_splits(const float* __restrict__ part, float* __restrict__ out,
+                                     int64_t count, int s, bool accumulate) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float sum = part[i];
+  for (int k = 1; k < s; ++k) sum += part[(int64_t)k * count + i];
+  out[i] = accumulate ? out[i] + sum : sum;
+}
+
+// Pack B and V (t <= W columns) into `scratch` (pack_floats(n, d, W)
+// floats) on `stream`, the norms scaled by norm_scale.
+template <int W = 1, typename T>
 inline cudaError_t launch_pack(const T* b, const T* v, float* scratch, int64_t n, int d,
-                               float norm_scale, cudaStream_t stream) {
-  const PackShape s = pack_shape(n, d);
+                               float norm_scale, cudaStream_t stream, int t = 1) {
+  const PackShape s = pack_shape(n, d, W);
   if (s.rows == 0) return cudaSuccess;
   if (!scratch) return cudaErrorInvalidValue;
   constexpr int PT = 256;
-  pack_b<T><<<(unsigned)((s.rows + PT - 1) / PT), PT, 0, stream>>>(b, v, scratch, n, s.rows, d,
-                                                                   s.stride, norm_scale);
+  pack_b<T, W><<<(unsigned)((s.rows + PT - 1) / PT), PT, 0, stream>>>(
+      b, v, scratch, n, s.rows, d, s.stride, norm_scale, t);
   return cudaGetLastError();
 }
 
 }  // namespace t1
 }  // namespace pk
 
+#ifndef PK_SWEEP_NO_EXPORTS
 // Floats of the scratch a t = 1 launch of m rows needs for B of n rows and
 // d features (the packed B: 48 MB at n = 10^6, d = 9; and the (S, m)
 // partials of a launch split over n); each library that includes this
-// header exports it.
+// header exports it (a library built in parts, once).
 extern "C" long long sweep_t1_scratch_floats(long long m, long long n, int d) {
   return m < 0 || n < 0 || d < 1 ? 0 : (long long)pk::t1::scratch_floats(m, n, d);
 }
-// The ranges S a t = 1 launch of m rows splits B of n rows into (1: no split).
+// The ranges S a launch of m rows splits B of n rows into (1: no split),
+// at t = 1 and at every W.
 extern "C" int sweep_t1_splits(long long m, long long n, int d) {
   return m < 0 || n < 0 || d < 1 ? 1 : pk::t1::split_of(m, n, d).s;
 }
+#endif
 
 namespace pk {
 namespace t1 {
@@ -414,11 +478,12 @@ inline dim3 sweep_grid(int64_t m, const Split& sp) {
 }
 
 // After a split sweep: out (+)= the partials' sums (part: the scratch past
-// the packed B).
-inline cudaError_t launch_reduce(const float* part, float* out, int64_t m, int s,
+// the packed B; count: the values of out, m x t).
+inline cudaError_t launch_reduce(const float* part, float* out, int64_t count, int s,
                                  bool accumulate, cudaStream_t stream) {
   constexpr int RT = 256;
-  reduce_splits<<<(unsigned)((m + RT - 1) / RT), RT, 0, stream>>>(part, out, m, s, accumulate);
+  reduce_splits<<<(unsigned)((count + RT - 1) / RT), RT, 0, stream>>>(part, out, count, s,
+                                                                      accumulate);
   return cudaGetLastError();
 }
 

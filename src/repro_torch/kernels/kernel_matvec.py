@@ -5,9 +5,10 @@ kernel_matvec_pallas``.  The kernel is bound by operations (O(m n d) f32
 FMAs plus one kernel-map evaluation per pair, and t FMAs a pair for t
 columns); its source note says how the design keeps every pair in registers
 and shared memory.  The route is chosen by t alone: t = 1 runs on the t = 1
-sweep (``csrc/sweep_t1.cuh``), 2 <= t <= 8 on one 8-column loop, t > 8 on the
-column path (``csrc/sweep_cols.cuh``).  At t = 1 and up to 4096 rows of A
-(a serving bucket) the sweep splits B over grid.y, so a few rows still fill
+sweep (``csrc/sweep_t1.cuh``), 2 <= t <= 16 on the same sweep with V's
+columns packed beside B (a compile-time width of 2, 4, 8, 12 or 16), t > 16
+on the column path (``csrc/sweep_cols.cuh``).  Up to 4096 rows of A (a
+serving bucket) both sweeps split B over grid.y, so a few rows still fill
 the card; the split is set by n alone, so a row's result is bitwise the
 same whatever rows travel with it.  Its plain version is
 ``repro_torch.kernels.ref.kernel_matvec``.
@@ -49,6 +50,12 @@ def _fn():
     return fn
 
 
+def sweep_t_max() -> int:
+    """The widest t that runs on a sweep (the library's
+    ``kernel_matvec_sweep_t_max``); wider V goes to the column path."""
+    return _build.load("kernel_matvec").kernel_matvec_sweep_t_max()
+
+
 def t1_scratch(lib: ctypes.CDLL, m: int, n: int, d: int, device) -> torch.Tensor:
     """The f32 scratch of a t = 1 launch of ``lib`` over m rows: B packed
     with its norms and v, then, where the launch splits n (m <= 4096), the
@@ -60,10 +67,22 @@ def t1_scratch(lib: ctypes.CDLL, m: int, n: int, d: int, device) -> torch.Tensor
     return torch.empty((size(m, n, d),), dtype=torch.float32, device=device)
 
 
+def _scratch(m: int, n: int, d: int, t: int, device) -> torch.Tensor | None:
+    """The f32 scratch of a launch at t columns: B packed with its norms and
+    V, then, where the launch splits n (m <= 4096), the (S, m, t) partials
+    (``kernel_matvec_scratch_floats``); None on the column path (t > 16)."""
+    size = _build.load("kernel_matvec").kernel_matvec_scratch_floats
+    size.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    size.restype = ctypes.c_longlong
+    floats = size(m, n, d, t)
+    return torch.empty((floats,), dtype=torch.float32, device=device) if floats else None
+
+
 def t1_splits(lib: ctypes.CDLL, m: int, n: int, d: int) -> int:
-    """The ranges S a t = 1 launch of ``lib`` over m rows splits B (n rows,
-    d features) into: 1 above 4096 rows or for a short B, else a number
-    set by n and the feature route alone (``sweep_t1_splits``)."""
+    """The ranges S a sweep of ``lib`` over m rows splits B (n rows, d
+    features) into, at t = 1 and on the multi-column sweep alike: 1 above
+    4096 rows or for a short B, else a number set by n and the feature
+    route alone (``sweep_t1_splits``)."""
     fn = lib.sweep_t1_splits
     fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -96,14 +115,15 @@ def kernel_matvec_cuda(
 
     a: (m, d), b: (n, d), v: (n,) | (n, t), CUDA, f32 or bf16 -> f32 (m,) | (m, t).
     The operands are cast to the policy's type (bf16 for ``"bf16"``, f32
-    otherwise) and made contiguous before the launch.  t = 1 launches the
-    t = 1 sweep (B packed with its norms and v into a scratch buffer
-    first; up to 4096 rows of A, B split into ranges over grid.y, each
-    row's range sums added in a fixed order by a second kernel).  t > 1
+    otherwise) and made contiguous before the launch.  Up to 16 columns the
+    launch runs a sweep: B packed with its norms and V's t columns into a
+    scratch buffer first (zero columns up to the sweep's width, 2 to 16),
+    then, up to 4096 rows of A, B split into ranges over grid.y, each
+    value's range sums added in a fixed order by a third kernel.  t > 16
     reads f32 operands (bf16 values widen exactly) with V padded by zero
-    columns to a multiple of 4, so its rows are copied in 16-byte units; up
-    to 8 columns run on one 8-column loop, more on the column path, which
-    forms each pair's kernel value once for up to 160 columns.
+    columns to a multiple of 4, so its rows are copied in 16-byte units, on
+    the column path, which forms each pair's kernel value once for up to
+    160 columns.
     """
     check_operands(a, b, v)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1] or a.shape[1] < 1:
@@ -115,17 +135,18 @@ def kernel_matvec_cuda(
     m, d = a.shape
     n = b.shape[0]
     t = 1 if v.ndim == 1 else v.shape[1]
-    tp = -(-t // 4) * 4 if t > 1 else 1  # the columns launched
-    if t > 1:  # f32 operands: bf16 values widen exactly
+    if m == 0:  # nothing to launch
+        return torch.empty((0,) if v.ndim == 1 else (0, t), dtype=torch.float32, device=a.device)
+    fn = _fn()
+    cols = t > sweep_t_max()
+    tp = -(-t // 4) * 4 if cols else t  # the columns launched
+    if cols:  # the column path: f32 operands (bf16 values widen exactly)
         a, b, v = (x.float() for x in (a, b, v))
         if tp > t:
             v = torch.nn.functional.pad(v, (0, tp - t))
     out = torch.empty((m,) if v.ndim == 1 else (m, tp), dtype=torch.float32, device=a.device)
-    if m == 0:  # nothing to launch
-        return out[:, :t] if tp > t else out
-    fn = _fn()
-    # t = 1 packs B with its norms and v into a scratch buffer first
-    scratch = t1_scratch(_build.load("kernel_matvec"), m, n, d, a.device) if t == 1 else None
+    # a sweep packs B with its norms and V into a scratch buffer first
+    scratch = _scratch(m, n, d, tp, a.device)
     with torch.cuda.device(a.device):  # the launch goes to the runtime's current device
         err = fn(
             a.data_ptr(), b.data_ptr(), v.data_ptr(), out.data_ptr(), m, n, d, tp,

@@ -3,8 +3,8 @@ plain PyTorch versions, one ASkotch step on the card against the same step
 on the CPU, a multi-kernel operator whose every primitive launches the
 multi-kernel CUDA kernels, the baselines, the estimators and the SAP steps
 on the card against the CPU, a telemetry-enabled solve, the t = 1 sweep
-split over n (its edges, and a row bitwise the same in every serving
-bucket), the serving engine on the card against the engine on the CPU, and
+and the multi-column sweep (2 <= t <= 16) split over n (their edges, and
+a row bitwise the same in every serving bucket), the serving engine on the card against the engine on the CPU, and
 the distributed tier on meshes of cuda:0 against the same meshes of CPU
 devices, every reduced LM architecture (loss, prefill, decode, greedy
 tokens, a decode at a clamped position, the serving launcher) on the card
@@ -419,12 +419,14 @@ def test_cuda_block_single_row_or_column(cuda_device, rng, m, n, precision):
         np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
 
 
-#: kernel_matvec's widths t > 1: 2, 3 and 8 on its 8-column loop, then its
-#: column path: 9 and 10 in a 32-column block, 33 in a 64-column one,
-#: pcg-nystrom's rank 100 (one 128-column block), 129 (one 160-column block)
-#: and 161 (two blocks of 84 columns); a t that is not a multiple of 4 runs
-#: with V padded by zero columns
-COLS_T = [2, 3, 8, 9, 10, 33, 100, 129, 161]
+#: kernel_matvec's widths t > 1: 2, 3, 8, 9 and 10 on its multi-column
+#: sweep (widths 2, 4, 8 and 12, V zero-filled to them in the pack), then
+#: its column path: 17 and 20 (the single-kernel tune's 4 lams x 5 folds)
+#: in a 32-column block, 33 in a 64-column one, pcg-nystrom's rank 100 (one
+#: 128-column block), 129 (one 160-column block) and 161 (two blocks of 84
+#: columns); there a t that is not a multiple of 4 runs with V padded by
+#: zero columns
+COLS_T = [2, 3, 8, 9, 10, 17, 20, 33, 100, 129, 161]
 
 
 @pytest.mark.cuda
@@ -432,11 +434,10 @@ COLS_T = [2, 3, 8, 9, 10, 33, 100, 129, 161]
 @pytest.mark.parametrize("kern", KERNEL_NAMES)
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 def test_cuda_matvec_t100_matches_plain(cuda_device, rng, t, kern, precision):
-    """kernel_matvec at t > 1 (the 8-column loop up to t = 8, the column
-    path above: pcg-nystrom's sketch width 100 among them) against its plain
-    version, every kernel, at m and n ragged against the tiles ((130, 301),
-    (1000, 3001)) and at one column-path block's rows (65, 64); one launch a
-    call."""
+    """kernel_matvec at t > 1 (the multi-column sweep up to t = 16, the
+    column path above: pcg-nystrom's sketch width 100 among them) against
+    its plain version, every kernel, at m and n ragged against the tiles
+    ((130, 301), (1000, 3001)) and at (65, 64); one launch a call."""
     tol = F32_TOL if precision == "f32" else BF16_TOL
     for m, n in [(130, 301), (1000, 3001), (65, 64)]:
         a = _t(rng.standard_normal((m, 9)).astype(np.float32) / 3).to(cuda_device)
@@ -455,8 +456,9 @@ def test_cuda_matvec_t100_matches_plain(cuda_device, rng, t, kern, precision):
 @pytest.mark.parametrize("t", [8, 10, 100])
 def test_cuda_matvec_columns_are_deterministic(cuda_device, rng, t):
     """Two launches of kernel_matvec at t > 1 on the same inputs are
-    bitwise equal (no atomics: the loop's fixed butterfly at t = 8, the
-    column path's whole output values a thread at 10 and 100)."""
+    bitwise equal (no atomics: the multi-column sweep's warp-ordered row
+    sums and split-ordered partials at 8 and 10, the column path's whole
+    output values a thread at 100)."""
     x = _t(rng.standard_normal((3000, 9)).astype(np.float32)).to(cuda_device)
     v = _t(rng.standard_normal((3000, t)).astype(np.float32)).to(cuda_device)
     for kern in ("rbf", "laplacian"):
@@ -684,6 +686,61 @@ def test_cuda_split_rows_bitwise_the_same_in_every_bucket(cuda_device, rng, prec
             a = _t(rng.standard_normal((bucket, d)).astype(np.float32) / 3).to(cuda_device)
             a[at:at + 8] = rows
             assert torch.equal(fn(a)[at:at + 8], base)
+
+
+#: kernel_matvec's multi-column sweep on the split route: each width W (2,
+#: 4, 8, 12, 16) at t = W, and 3, 10 and 13 below one
+HEADS_T = (2, 3, 4, 8, 10, 12, 13, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [9, 16, 17, 37])
+@pytest.mark.parametrize("edge", ["below", "multiple", "minus1", "plus1"])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_heads_sweep_edges_match_plain(cuda_device, rng, d, edge, precision):
+    """kernel_matvec at 2 <= t <= 16 (the multi-column sweep, every kernel)
+    on the split route's edges of m and n, against the plain version: S
+    ranges of B, (S, m, t) partials added in split order."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kernel_matvec import t1_splits
+
+    n = _split_ns(d)[edge]
+    assert (t1_splits(_build.load("kernel_matvec"), 8, n, d) > 1) == (edge != "below")
+    b = _t((rng.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)).to(cuda_device)
+    v = _t(rng.standard_normal((n, max(HEADS_T))).astype(np.float32)).to(cuda_device)
+    tol = F32_TOL if precision == "f32" else BF16_TOL
+    for m in (1, 8, 64, 65):
+        a = _t((rng.standard_normal((m, d)) / np.sqrt(d)).astype(np.float32)).to(cuda_device)
+        for t in HEADS_T:
+            vt = v[:, :t].contiguous()
+            for kern in KERNEL_NAMES:
+                before = kernel_matvec_cuda.launches
+                got = kernel_matvec_cuda(a, b, vt, kernel=kern, sigma=1.3, precision=precision)
+                assert kernel_matvec_cuda.launches == before + 1 and got.shape == (m, t)
+                want = ops.ref.kernel_matvec(a, b, vt, 1.3, kernel=kern,
+                                             precision=precision).cpu().numpy()
+                np.testing.assert_allclose(got.cpu().numpy(), want, **_tol(want, *tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_heads_rows_bitwise_the_same_in_every_bucket(cuda_device, rng, precision):
+    """At t = 10 the same 8 rows in buckets of 8, 64 and 1024 rows, at other
+    positions and with other rows beside them, score bitwise the same: the
+    multi-column sweep splits B as the t = 1 sweep does, by n alone."""
+    n, d, t = 100_000, 9, 10
+    b = _t(rng.standard_normal((n, d)).astype(np.float32) / 3).to(cuda_device)
+    v = _t(rng.standard_normal((n, t)).astype(np.float32)).to(cuda_device)
+    rows = _t(rng.standard_normal((8, d)).astype(np.float32) / 3).to(cuda_device)
+
+    def fn(a):
+        return kernel_matvec_cuda(a, b, v, kernel="rbf", sigma=1.0, precision=precision)
+
+    base = fn(rows)
+    for bucket, at in ((64, 37), (1024, 1000), (1024, 0)):
+        a = _t(rng.standard_normal((bucket, d)).astype(np.float32) / 3).to(cuda_device)
+        a[at:at + 8] = rows
+        assert torch.equal(fn(a)[at:at + 8], base)
 
 
 @pytest.mark.cuda

@@ -3,15 +3,14 @@
 
     python3 tools/sass_torch_loops.py kernel_multi kernel_matvec_cols_kernel ILb0ELb1ELb1ELi10E
 
-Compiles ``src/repro_torch/csrc/<source>.cu`` into a cubin for ``sm_90a``
-(``nvcc -cubin`` with ``_build.TARGET_FLAGS``, the target and optimisation
-flags of the kernels' own build), disassembles it with ``cuobjdump -sass``
-and, for the first function whose mangled name contains every given
-pattern, prints one JSON line per loop (a branch to a lower address): its
-address range, its instruction count and the count of each opcode, the
-innermost loops first.  ``--sass FILE`` reads a saved ``cuobjdump -sass``
-listing instead of compiling.  Compiling needs nvcc and cuobjdump (the
-machine with the card).
+Builds ``src/repro_torch/csrc/<source>.cu`` as the kernels' own build does
+(``_build.build``, skipped while the library is current), disassembles the
+library with ``cuobjdump -sass`` and, for the first function whose mangled
+name contains every given pattern, prints one JSON line per loop (a branch
+to a lower address): its address range, its instruction count and the
+count of each opcode, the innermost loops first.  ``--sass FILE`` reads a
+saved ``cuobjdump -sass`` listing instead.  Building needs nvcc and
+cuobjdump (the machine with the card).
 """
 
 from __future__ import annotations
@@ -23,10 +22,8 @@ import pathlib
 import re
 import subprocess
 import sys
-import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-CSRC = ROOT / "src" / "repro_torch" / "csrc"
 
 _INSN = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(.*?);")
 
@@ -35,14 +32,10 @@ def sass_of(source: str) -> str:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
-    nvcc = _build._nvcc()
-    with tempfile.TemporaryDirectory() as tmp:
-        cubin = pathlib.Path(tmp) / f"{source}.cubin"
-        subprocess.run([nvcc, *_build.TARGET_FLAGS, "-cubin", "-o", str(cubin),
-                        str(CSRC / f"{source}.cu")], check=True)
-        cuobjdump = pathlib.Path(nvcc).with_name("cuobjdump")
-        return subprocess.run([str(cuobjdump), "-sass", str(cubin)], check=True,
-                              capture_output=True, text=True).stdout
+    _build.build([source])
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(_build.lib_path(source))], check=True,
+                          capture_output=True, text=True).stdout
 
 
 def loops(sass: str, patterns: list[str]) -> tuple[str, list[dict]]:

@@ -28,18 +28,21 @@ equal (q,) weights per combination (rbf, laplacian, matern52 alone,
 rbf + matern52, rbf + laplacian, all three in f32 and bf16): the
 differences between rows price a family's sum (laplacian's |a - b|
 against rbf's a.b) and a map (matern52 over rbf).  ``kernel_matvec_cols``
-times ``kernel_matvec`` at t > 1 (its column path) on the solve's G_B
-operands (50,000 x 10^6) with t = 2, 10 (a one-vs-all G_B) and 100
-(pcg-nystrom's sketch width), each beside its bound (``chip_smoke._bound``);
-``--quick`` keeps these rows and ``--matvec-t`` sets the widths.
-``serve_ms`` times the serving buckets against the 10^6 rows (t = 1 splits
-n over the grid up to 4096 rows): ``kernel_matvec`` at 8, 64 and 1024
-queries, the weighted matvec at 64 and ``kernel_matvec`` at t = 10 for 64.
+times ``kernel_matvec`` at t > 1 on the solve's G_B operands (50,000 x
+10^6) with t = 2, 4, 8, 10 and 16 (a one-vs-all G_B: the multi-column
+sweep), 20 (the single-kernel tune's 4 lams x 5 folds) and 100
+(pcg-nystrom's sketch width; both the column path), each beside its bound
+(``chip_smoke._bound``); ``--quick`` keeps these rows and ``--matvec-t``
+sets the widths.
+``serve_ms`` times the serving buckets against the 10^6 rows (the sweeps
+split n over the grid up to 4096 rows): ``kernel_matvec`` at 8, 64 and
+1024 queries, the weighted matvec at 64 and ``kernel_matvec`` at t = 10
+for 8, 64 and 1024.
 ``--digests`` adds the sha256 of the output
 of each multi-kernel call timed, of ``kernel_matvec`` at G_B, the
-prediction and the residual pass (10^6 x 10^6), of the weighted matvec's
-residual pass, and of the serving buckets, so two
-trees' outputs are compared bitwise from their two lines.  Timing is
+prediction and the residual pass (10^6 x 10^6), at each ``--matvec-t``
+width, of the weighted matvec's residual pass, and of the serving buckets,
+so two trees' outputs are compared bitwise from their two lines.  Timing is
 ``chip_smoke._time_ms`` (CUDA events), median of ``--reps`` (7) after one
 warm-up.
 Prints one JSON line.  Whichever ``repro_torch`` is first on ``PYTHONPATH``
@@ -76,9 +79,10 @@ from repro_torch.kernels.multi import (  # noqa: E402
 #: chip_smoke.py, rounded
 REFIT_WEIGHTS = (0.665, 0.021, 0.314)
 
-#: kernel_matvec's widths at t > 1: two columns, a one-vs-all G_B of 10
-#: heads and pcg-nystrom's rank-100 sketch
-MATVEC_T = (2, 10, 100)
+#: kernel_matvec's widths at t > 1: one-vs-all G_Bs of 2 to 16 heads (the
+#: multi-column sweep at each width), the single-kernel tune's 20 columns
+#: and pcg-nystrom's rank-100 sketch (the column path)
+MATVEC_T = (2, 4, 8, 10, 16, 20, 100)
 
 
 def sha256_of(x: torch.Tensor) -> str:
@@ -119,11 +123,11 @@ def main() -> None:
     gen_mv = torch.Generator(device="cuda").manual_seed(16)
     for t in (int(x) for x in args.matvec_t.split(",")):
         vt = torch.randn((x.shape[0], t), generator=gen_mv, device="cuda")
-        ms = median_ms(lambda: kernel_matvec_cuda(xb, x, vt, kernel="rbf", sigma=1.0,
-                                                  precision="f32"))
+        calls[f"kernel_matvec t{t}"] = fn = (
+            lambda vt=vt: kernel_matvec_cuda(xb, x, vt, kernel="rbf", sigma=1.0, precision="f32"))
+        ms = median_ms(fn)
         bound = chip_smoke._bound(xb.shape[0], x.shape[0], chip_smoke.D, t)
         mv_cols[f"t{t}"] = {"t": t, "ms": ms, "bound_ms": bound["bound_ms"]}
-        del vt
     report["kernel_matvec_cols"] = mv_cols
     calls["kernel_matvec G_B"] = lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=1.0,
                                                             precision="f32")
@@ -140,8 +144,8 @@ def main() -> None:
              for m in (8, chip_smoke.SMALL_M, 1024)}
     serve[f"multi m{chip_smoke.SMALL_M}"] = lambda: kernel_matvec_multi_cuda(
         q, x, z, w_refit, kernels=ks, sigmas=sg, precision="f32")
-    serve[f"mv t10 m{chip_smoke.SMALL_M}"] = lambda: kernel_matvec_cuda(
-        q, x, z10, kernel="rbf", sigma=1.0, precision="f32")
+    serve.update({f"mv t10 m{m}": (lambda m=m: kernel_matvec_cuda(
+        xb[:m], x, z10, kernel="rbf", sigma=1.0, precision="f32")) for m in (8, chip_smoke.SMALL_M, 1024)})
     report["serve_ms"] = {label: median_ms(fn) for label, fn in serve.items()}
     calls.update({f"serve {label}": fn for label, fn in serve.items()})
     if not args.quick:
