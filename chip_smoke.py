@@ -27,9 +27,17 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                n = 2999 with m = 1001 (split over n) and 4097 (above
                SPLIT_M: one range), and at m in HEADS_SPLIT_M (1, 8, 64,
                65) with n at the split's tile edges (split_ns).
+               Then kernel_block on each of its routes
+               (``block_route_cases``): few columns at n = 1, 2, 3, 16 and
+               one past the skinny routes' limit (``skinny_max()``), few
+               rows at m = 1, 2 and one past it, the symmetric route (b the same tensor as a)
+               and the tile route on a copy at 132, 1000 and 1001 rows,
+               the tile route at (1000, 3000) and (257, 1001) (n % 4 != 0:
+               the threads store), each at d = 1, 16, 17, 37, every kernel
+               x {f32, bf16}: 896 checks, one line a case with its route.
                Tolerances as the JAX package's kernel tests: f32 rtol 2e-4
                / atol 2e-5 x max(1, |ref|max); bf16 rtol 0.05 / atol 0.02 x
-               max(1, |ref|max).  9,702 checks.
+               max(1, |ref|max).  10,598 checks.
   3b. check_multi — the three multi-kernel kernels against their plain
                versions, same tolerances and shapes: the combinations
                (rbf, laplacian, matern52) (l2 + l1 families), (linear,
@@ -62,8 +70,11 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                refit's K_BB, of the stacked matvec at the tune's sketch, of
                kernel_matvec's column path at t = 100 (20,000^2 x 100) and
                of its multi-column sweep at 50,000 x 10^6 x 8 and at a
-               10-head serving bucket (64 x 10^6 x 10, split) are bitwise
-               equal.
+               10-head serving bucket (64 x 10^6 x 10, split), and of
+               kernel_block on each route (K_BB with b the same tensor: the
+               symmetric route, also bitwise its own transpose; K_BB of a
+               copy: the tile route; the pivot column 10^6 x 1 and SAP's
+               row 1 x 20,000: the skinny routes) are bitwise equal.
   4. solve   — the main path through ``solver_api.solve("askotch")`` at the
                paper's taxi configuration (d = 9, rbf, sigma = 1,
                lam_unscaled = 2e-7, b = 50,000, r = 100, f32), with n cut
@@ -186,8 +197,10 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                --mesh 1x1`` and ``--method dc --dc-shards 4`` with the JAX
                launcher's keys.  Each path's launches are read.
   7. time    — each kernel at the main path's shapes (CUDA events, median
-               of 5 after warm-up; the plain version's of 3) beside its
-               plain version and its bound,
+               of 5 after warm-up; the plain version's of 3; the card held
+               busy while each call is enqueued, so a short kernel's time is
+               the card's, not the wrapper's) beside its plain version and
+               its bound,
                with the kernel's result held against the plain one there;
                also kernel_matvec for the 10^4 prediction queries and for
                serving's buckets of 8, 64 (the small-m case) and 1024
@@ -202,9 +215,14 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                G_B of 2, 4, 8 and 10 heads (50,000 x 10^6 x t); the distributed
                tier's (1, 1) Nystrom sketch (50,000^2 x 100) and powering
                (50,000^2, t = 1), and a DC shard's G_B (50,000 x 250,000)
-               and K_BB.  The kernels line has
-               one row per (kernel, path shape), each with the launches of
-               that path.
+               and K_BB; kernel_block at Falkon's K_mm (20,000^2, b the
+               same tensor) and SAP's row (1 x 20,000, Kaczmarz's path).
+               The K_BB, DC K_BB and K_mm rows carry ``write_floor_ms``,
+               the time of ``fill_`` on the kernel's own output, timed rep
+               by rep between its launches: what a pass that only stores
+               reaches on the card.  The kernels
+               line has one row per (kernel, path shape), each with the
+               launches of that path.
   7b. lm    — LM serving (``repro_torch.models``, ``serving.serve_step``),
                which runs no hand-written kernel.  The ten architectures at
                their reduced size (f32): the same weights and batch (drawn on
@@ -546,10 +564,12 @@ def phase_check() -> dict:
                     n_checks += 1
     heads_checks, heads_worst = _check_heads(sigma)
     worst["kernel_matvec"] = max(worst["kernel_matvec"], heads_worst)
+    block_checks, block_worst = _check_block_routes(sigma)
+    worst["kernel_block"] = max(worst["kernel_block"], block_worst)
     emit({"phase": "check", "m": m, "n": n, "sigma": sigma, "t1_edges": T1_EDGES,
           "cols_t": COLS_T, "cols_checks": n_checks, "heads_t": HEADS_T, "heads_d": HEADS_D,
           "heads_split_m": HEADS_SPLIT_M, "heads_checks": heads_checks,
-          "worst_abs_err": worst})
+          "block_route_checks": block_checks, "worst_abs_err": worst})
     return worst
 
 
@@ -612,6 +632,75 @@ def _check_heads(sigma: float) -> tuple[int, float]:
     return n_checks, worst
 
 
+def block_route_cases() -> list[tuple[int, int, int, bool]]:
+    """(m, n, d, b is a) at which phase check holds each route of
+    kernel_block: the few-columns route at n = 1, 2, 3, 16 and one past the
+    skinny routes' limit (``skinny_max()``: the tile route there), m = 1000;
+    the few-rows route at m = 1, 2 and one past the limit, n = 3001; the
+    symmetric route (b the same tensor as a) and the tile route on a copy at
+    132 (one mirrored tile of 4 rows), 1000 (eight tiles, the last ragged:
+    float4 stores) and 1001 (n % 4 != 0: float stores); the tile route at
+    (1000, 3000) (float4 stores, a ragged last strip) and (257, 1001) (float
+    stores); each at d = 1, 16, 17 and 37 (one slab, a full one, the slab
+    loop)."""
+    from repro_torch.kernels.kernel_block import skinny_max
+
+    limit = skinny_max()
+    cases = []
+    for d in BLOCK_ROUTE_D:
+        cases += [(1000, n, d, False) for n in (1, 2, 3, 16, limit + 1)]
+        cases += [(m, 3001, d, False) for m in (1, 2, limit + 1)]
+        cases += [(m, m, d, same) for m in (132, 1000, 1001) for same in (True, False)]
+        cases += [(1000, 3000, d, False), (257, 1001, d, False)]
+    return cases
+
+
+#: feature widths of block_route_cases
+BLOCK_ROUTE_D = (1, 16, 17, 37)
+
+
+def _check_block_routes(sigma: float) -> tuple[int, float]:
+    """kernel_block against its plain version on every route's edges
+    (``block_route_cases``), every kernel in f32 and bf16; one line a case
+    with the route it took.  Returns (checks, worst error)."""
+    import torch
+
+    from repro_torch.core.kernels import KERNEL_NAMES
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kernel_block import block_route, kernel_block_cuda, skinny_max
+
+    gen = torch.Generator().manual_seed(26)
+    n_checks, worst = 0, 0.0
+    for m, n, d, same in block_route_cases():
+        a = (torch.randn((m, d), generator=gen) / math.sqrt(d)).cuda()
+        b = a if same else (a.clone() if m == n else
+                            (torch.randn((n, d), generator=gen) / math.sqrt(d)).cuda())
+        if m > 3:
+            a[3] = 0.0  # cosine's zero-norm-as-1 rule (b == a or its copy: row 3 of b too)
+            if m == n:
+                b[3] = 0.0
+        errs, labels = [], []
+        for kern in KERNEL_NAMES:
+            for prec in ("f32", "bf16"):
+                got = kernel_block_cuda(a, b, kernel=kern, sigma=sigma, precision=prec)
+                want = ref.kernel_block(a, b, sigma, kernel=kern, precision=prec)
+                errs.append(_err_on_card(got, want, prec))
+                labels.append((kern, prec))
+        err = torch.stack([e for e, _ in errs]).cpu()
+        ok = torch.stack([k for _, k in errs]).cpu()
+        n_checks += len(labels)
+        worst = max(worst, float(err.max()))
+        route = block_route(m, n, same, skinny_max())
+        emit({"check": "kernel_block route", "route": route, "m": m, "n": n, "d": d,
+              "b_is_a": same, "checks": len(labels), "max_abs_err": float(err.max()),
+              "ok": bool(ok.all())})
+        if not bool(ok.all()):
+            bad = [labels[i] for i in range(len(labels)) if not ok[i]]
+            fail(f"kernel_block ({route}) m={m} n={n} d={d} b_is_a={same}: {bad[:5]} off the "
+                 f"plain version (worst err {float(err.max())})")
+    return n_checks, worst
+
+
 def phase_check_determinism() -> None:
     """Two launches of each redesigned kernel at its main-path shape give
     bitwise equal results: the t = 1 kernels at the solve's G_B (50,000 x
@@ -624,6 +713,7 @@ def phase_check_determinism() -> None:
     split)."""
     import torch
 
+    from repro_torch.kernels.kernel_block import kernel_block_cuda
     from repro_torch.kernels.kernel_matvec import kernel_matvec_cuda
     from repro_torch.kernels.multi import (
         kernel_block_multi_cuda,
@@ -661,18 +751,38 @@ def phase_check_determinism() -> None:
             [SMALL_M, N_TRAIN, D, OVA_HEADS], lambda: kernel_matvec_cuda(
                 xb[:SMALL_M], x, z10, kernel="rbf", sigma=SIGMA, precision="f32")),
     }
+    # kernel_block on each route at its path's shape: K_BB (b is a: the
+    # symmetric route; b a copy: the tile route), the pivot column (few
+    # columns) and SAP's row (few rows)
+    xb_copy = xb.clone()
+    blk = lambda a, b: lambda: kernel_block_cuda(a, b, kernel="rbf", sigma=SIGMA,  # noqa: E731
+                                                 precision="f32")
+    runs.update({
+        "kernel_block (symmetric, K_BB)": ([BLOCK, BLOCK, D], blk(xb, xb)),
+        "kernel_block (tile, K_BB of a copy)": ([BLOCK, BLOCK, D], blk(xb, xb_copy)),
+        "kernel_block (skinny columns, pivot column)": ([N_TRAIN, 1, D], blk(x, xb[:1])),
+        "kernel_block (skinny rows, SAP row)": ([1, N_TUNE, D], blk(xt[7:8], xt)),
+    })
     for name, (shape, fn) in runs.items():
         first = fn()
         second = fn()
         torch.cuda.synchronize()
         same = bool(torch.equal(first, second))
-        emit({"check": "determinism", "kernel": name, "shape": shape, "bitwise_equal": same})
+        rec = {"check": "determinism", "kernel": name, "shape": shape, "bitwise_equal": same}
+        if name == "kernel_block (symmetric, K_BB)":
+            # the mirrored tiles: K(A, A) bitwise its own transpose
+            rec["bitwise_symmetric"] = all(
+                torch.equal(first[i:i + 4096], first[:, i:i + 4096].T)
+                for i in range(0, first.shape[0], 4096))
+            if not rec["bitwise_symmetric"]:
+                fail(f"{name}: K(A, A) is not bitwise its own transpose")
+        emit(rec)
         if not same:
             fail(f"{name}: two launches at shape {shape} differ "
                  f"(max {float((first - second).abs().max())})")
         del first, second
         torch.cuda.empty_cache()
-    del x, xb, z, omega, z8, z10
+    del x, xb, z, omega, z8, z10, xb_copy
     torch.cuda.empty_cache()
 
 
@@ -2542,7 +2652,16 @@ def phase_dist(solve_rec: dict, solve_w) -> dict:
     return launches
 
 
-def _time_ms(fn, reps: int = 5, warm: bool = True) -> float:
+#: cycles the card spins (``torch.cuda._sleep``, ~1 ms) ahead of each timed
+#: call, so the call's launches are enqueued before its start event runs
+HOLD_CYCLES = 2_000_000
+
+
+def _time_ms(fn, reps: int = 5, warm: bool = True, hold: bool = False) -> float:
+    """Median time of ``fn()`` between CUDA events.  ``hold``: the card is
+    kept busy while the host enqueues the call, so a short kernel's time is
+    the card's and not the wrapper's Python (phase time's kernel rows;
+    without it, rows under ~0.2 ms carry ~40 us of host time)."""
     import torch
 
     if warm:
@@ -2551,6 +2670,8 @@ def _time_ms(fn, reps: int = 5, warm: bool = True) -> float:
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -2609,17 +2730,52 @@ def main_path_inputs():
     return x, x.index_select(0, idx), torch.randn((N_TRAIN,), generator=gen, device="cuda")
 
 
-def _time_case(fn, plain_fn, bound: dict) -> dict:
+def time_with_floor_ms(fn, reps: int = 5) -> tuple[float, float]:
+    """Median times of ``fn()`` and of ``fill_(0.5)`` on the tensor that
+    call returned, rep by rep (after a warm-up): the write floor, what a
+    pass that only stores reaches on this card in the very allocation the
+    kernel wrote, the yardstick of kernel_block's output-bound routes.
+    The card is held before each, as by ``_time_ms(hold=True)``."""
+    import torch
+
+    fn().fill_(0.5)  # warm-up
+    torch.cuda.synchronize()
+    ks, fs = [], []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda._sleep(HOLD_CYCLES)
+        ev[0].record()
+        y = fn()
+        ev[1].record()
+        torch.cuda._sleep(HOLD_CYCLES)
+        ev[2].record()
+        y.fill_(0.5)
+        ev[3].record()
+        torch.cuda.synchronize()
+        ks.append(ev[0].elapsed_time(ev[1]))
+        fs.append(ev[2].elapsed_time(ev[3]))
+        del y
+    return statistics.median(ks), statistics.median(fs)
+
+
+def _time_case(fn, plain_fn, bound: dict, floor: bool = False) -> dict:
     """Time a kernel (median of 5) and its plain version (median of 3,
-    after the warm-up whose result the kernel's is held against)."""
+    after the warm-up whose result the kernel's is held against); with
+    ``floor`` also the write floor on the kernel's output
+    (``time_with_floor_ms``)."""
     import torch
 
     want = plain_fn()  # also the plain version's warm-up
-    ms, plain_ms = _time_ms(fn), _time_ms(plain_fn, reps=3, warm=False)
+    extra = {}
+    if floor:
+        ms, extra["write_floor_ms"] = time_with_floor_ms(fn)
+    else:
+        ms = _time_ms(fn, hold=True)
+    plain_ms = _time_ms(plain_fn, reps=3, warm=False, hold=True)
     err, ok = _err(fn(), want, "f32")
     del want
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "ok": ok}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, **extra, "ok": ok}
 
 
 def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: list[dict]
@@ -2664,7 +2820,7 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
          **_time_case(lambda: kernel_block_cuda(xb, xb, kernel="rbf", sigma=SIGMA,
                                                 precision="f32"),
                       lambda: ref.kernel_block(xb, xb, SIGMA, kernel="rbf"),
-                      _bound(BLOCK, BLOCK, D, None))},
+                      _bound(BLOCK, BLOCK, D, None), floor=True)},
     ]
     rows[0]["path"], rows[1]["path"] = "solve", "solve"
     mv_id = {k: rows[0][k] for k in ("name", "route", "source", "replaces", "library_ms")}
@@ -2804,6 +2960,19 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
          **_time_case(lambda: kernel_block_cuda(x, xp, kernel="rbf", sigma=SIGMA,
                                                 precision="f32"),
                       lambda: ref.kernel_block(x, xp, SIGMA), _bound(N_TRAIN, 1, D, None))},
+        {**blk_row, "case": "falkon K_mm", "path": "baselines falkon",
+         "launches": by_method["falkon"]["launches"]["kernel_block"],
+         "shape": [FALKON_M, FALKON_M, D],
+         **_time_case(lambda: kernel_block_cuda(xm, xm, kernel="rbf", sigma=SIGMA,
+                                                precision="f32"),
+                      lambda: ref.kernel_block(xm, xm, SIGMA), _bound(FALKON_M, FALKON_M, D, None),
+                      floor=True)},
+        {**blk_row, "case": "sap row", "path": "sap kaczmarz",
+         "launches": launches["sap kaczmarz"]["kernel_block"], "shape": [1, N_TUNE, D],
+         **_time_case(lambda: kernel_block_cuda(x[7:8], x[:N_TUNE], kernel="rbf", sigma=SIGMA,
+                                                precision="f32"),
+                      lambda: ref.kernel_block(x[7:8], x[:N_TUNE], SIGMA),
+                      _bound(1, N_TUNE, D, None))},
         {**mv_row, "case": "falkon K(X, X_m) v", "path": "baselines falkon",
          "launches": by_method["falkon"]["launches"]["kernel_matvec"],
          "shape": [N_TRAIN, FALKON_M, D, 1],
@@ -2841,7 +3010,7 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
          **_time_case(lambda: kernel_block_cuda(xb, xb, kernel="rbf", sigma=SIGMA,
                                                 precision="f32"),
                       lambda: ref.kernel_block(xb, xb, SIGMA, kernel="rbf"),
-                      _bound(BLOCK, BLOCK, D, None))},
+                      _bound(BLOCK, BLOCK, D, None), floor=True)},
     ]
     for r in rows:
         emit({"phase": "time", **r})
@@ -3718,7 +3887,7 @@ def main() -> int:
     refit_rec, refit_w = phase_refit(tune_result.best)
     baseline_recs = phase_baselines()
     phase_estimators(solve_rec, solve_w, tune_result)
-    phase_sap()
+    sap_recs = phase_sap()
     ova_launches = phase_ova()
     serve_recs = phase_serve(solve_w, tune_result.best, refit_w)
     dist_launches = phase_dist(solve_rec, solve_w)
@@ -3728,7 +3897,7 @@ def main() -> int:
                 "refit": refit_rec["launches"],
                 **{f"serve {k}": r["launches"] for k, r in zip(
                     ("taxi", "multikernel", "heads"), serve_recs)}, **ova_launches,
-                **dist_launches}
+                **dist_launches, **{f"sap {r['method']}": r["launches"] for r in sap_recs}}
     rows = phase_time(launches, tuple(tune_result.best["weights"]),
                       _tune_weight_cols(tune_result), baseline_recs)
     phase_lm(smi)
@@ -3738,7 +3907,8 @@ def main() -> int:
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{k: r[k] for k in (
         "name", "case", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms")} for r in rows]})
+        "plain_ms", "bound_ms", "bound_by", "library_ms", "write_floor_ms") if k in r}
+        for r in rows]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

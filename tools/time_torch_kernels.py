@@ -44,7 +44,25 @@ prediction and the residual pass (10^6 x 10^6), at each ``--matvec-t``
 width, of the weighted matvec's residual pass, and of the serving buckets,
 so two trees' outputs are compared bitwise from their two lines.  Timing is
 ``chip_smoke._time_ms`` (CUDA events), median of ``--reps`` (7) after one
-warm-up.
+warm-up, the card kept busy while each call is enqueued (as phase time
+does), so a short call's time is the card's, not the host's.
+``kernel_block_rows`` (``--block-only`` times only these, with the
+weighted block for rbf alone) times ``kernel_block`` at the shapes its
+paths give it, rbf, f32 unless named: K_BB (50,000^2) with b the same
+tensor as a (the symmetric route), with b a copy and in bf16; Falkon's
+K_mm (20,000^2, b the same tensor); the RPCholesky pivot column (10^6 x 1)
+and SAP's row (1 x 20,000); and K_BB at d = 1 with the linear kernel (b the
+same tensor: the least pair work the route can do, so its time is the
+stores').  The K_BB and K_mm rows carry ``write_floor_ms``, the time of
+``fill_(0.5)`` on the output each timed launch returned, rep by rep
+between the launches (``chip_smoke.time_with_floor_ms``): what a pass that
+only stores reaches on this card in the same allocation, and
+``floor_ratio``, ms over it, both from the one run.  ``kbb_symmetric`` says
+whether K_BB (rbf) and a (1000, 1000) K(A, A) of every kernel in f32 and
+bf16 are bitwise their own transposes.  ``--crossover`` times each forced
+route of ``kernel_block`` at few columns and few rows (the skinny routes
+against the tile route at 10^6 rows), from which the library's limit
+``kernel_block.skinny_max()`` is set.
 Prints one JSON line.  Whichever ``repro_torch`` is first on ``PYTHONPATH``
 is timed, so two versions are compared by alternating runs within one
 session (A, B, B, A).  Needs a CUDA card.
@@ -102,6 +120,10 @@ def main() -> None:
                     help="add the sha256 of each multi-kernel call's output")
     ap.add_argument("--matvec-t", default=",".join(map(str, MATVEC_T)),
                     help="kernel_matvec's widths t > 1, comma-separated")
+    ap.add_argument("--block-only", action="store_true",
+                    help="only kernel_block's rows, the write floor and the weighted block (rbf)")
+    ap.add_argument("--crossover", action="store_true",
+                    help="time kernel_block's forced routes at few columns / rows")
     ap.add_argument("--reps", type=int, default=7,
                     help="timed launches of each call, after one warm-up (the median is kept)")
     args = ap.parse_args()
@@ -111,7 +133,7 @@ def main() -> None:
     q = xb[:chip_smoke.SMALL_M].contiguous()
 
     def median_ms(fn):
-        return chip_smoke._time_ms(fn, reps=args.reps)
+        return chip_smoke._time_ms(fn, reps=args.reps, hold=True)
 
     ks = chip_smoke.MK_KERNELS
     sg = (1.0,) * len(ks)
@@ -119,6 +141,15 @@ def main() -> None:
     xq = xb[:chip_smoke.N_TEST].contiguous()
     report = {"label": args.label}
     calls = {}  # label -> the call, for --digests
+    report["kernel_block_rows"] = block_rows(x, xb, median_ms, calls, args.reps)
+    report["kbb_symmetric"] = block_symmetry(xb)
+    if args.crossover:
+        report["kernel_block_crossover"] = block_crossover(x, median_ms)
+    if args.block_only:
+        report["kernel_block_multi_rbf_ms"] = median_ms(lambda: kernel_block_multi_cuda(
+            xb, xb, kernels=("rbf",), sigmas=(1.0,), weights=(1.0,), precision="f32"))
+        finish(report, calls, args.digests)
+        return
     mv_cols = {}
     gen_mv = torch.Generator(device="cuda").manual_seed(16)
     for t in (int(x) for x in args.matvec_t.split(",")):
@@ -215,16 +246,98 @@ def main() -> None:
     report.update({"kernel_matvec_multi_t1": t1, "kernel_matvec_multi_cols": cols,
                    "kernel_matvec_components_ms": comp_ms, "kernel_block_multi_ms": blk_multi_ms,
                    "kernel_block_multi_copy_ms": blk_copy_ms, "kernel_block_multi_rbf_ms": blk_rbf_ms,
-                   "t1_parts_ms": parts, "card": chip_smoke.nvidia_smi_line()})
-    if args.digests:
-        digests = {}
+                   "t1_parts_ms": parts})
+    finish(report, calls, args.digests)
+
+
+def finish(report: dict, calls: dict, digests: bool) -> None:
+    """Add the card's line and, with ``digests``, each call's sha256; print."""
+    report["card"] = chip_smoke.nvidia_smi_line()
+    if digests:
+        report["digests"] = {}
         for label, fn in calls.items():
             out = fn()
-            digests[label] = sha256_of(out)
+            report["digests"][label] = sha256_of(out)
             del out
             torch.cuda.empty_cache()
-        report["digests"] = digests
     print(json.dumps(report))
+
+
+def block_rows(x, xb, median_ms, calls: dict, reps: int) -> dict:
+    """kernel_block at its paths' shapes (rbf, sigma 1) beside its bound,
+    the K_BB and K_mm rows beside the write floor of their own output;
+    fills ``calls`` for digests."""
+    blk = lambda a, b, prec="f32": (lambda: kernel_block_cuda(  # noqa: E731
+        a, b, kernel="rbf", sigma=1.0, precision=prec))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    xm = x.index_select(0, torch.randperm(x.shape[0], generator=gen, device="cuda")
+                        [:chip_smoke.FALKON_M])
+    xt = x[:chip_smoke.N_TUNE]
+    x1 = xb[:, :1].contiguous()
+    b = xb.shape[0]
+    cases = {  # label -> (call, (m, n, d), with the write floor)
+        "kbb same": (blk(xb, xb), (b, b, chip_smoke.D), True),
+        "kbb copy": (blk(xb, xb.clone()), (b, b, chip_smoke.D), True),
+        "kbb bf16": (blk(xb, xb, "bf16"), (b, b, chip_smoke.D), True),
+        "kbb same d1 linear": (lambda: kernel_block_cuda(x1, x1, kernel="linear", sigma=1.0,
+                                                         precision="f32"), (b, b, 1), True),
+        "falkon kmm": (blk(xm, xm), (xm.shape[0], xm.shape[0], chip_smoke.D), True),
+        "pivot column": (blk(x, xb[:1].contiguous()), (x.shape[0], 1, chip_smoke.D), False),
+        "sap row": (blk(xt[7:8].contiguous(), xt), (1, xt.shape[0], chip_smoke.D), False),
+    }
+    rows = {}
+    for label, (fn, (m, n, d), floor) in cases.items():
+        calls[f"kernel_block {label}"] = fn
+        rows[label] = {"shape": [m, n, d],
+                       "bound_ms": chip_smoke._bound(m, n, d, None)["bound_ms"]}
+        if floor:
+            ms, fl = chip_smoke.time_with_floor_ms(fn, reps=reps)
+            rows[label].update(ms=ms, write_floor_ms=fl, floor_ratio=ms / fl)
+        else:
+            rows[label]["ms"] = median_ms(fn)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def block_symmetry(xb) -> dict:
+    """Whether K(A, A) is bitwise its own transpose: K_BB (rbf, f32), and
+    every kernel in f32 and bf16 at (1000, 1000), d = 37."""
+    from repro_torch.core.kernels import KERNEL_NAMES
+
+    k = kernel_block_cuda(xb, xb, kernel="rbf", sigma=1.0, precision="f32")
+    same = all(torch.equal(k[i:i + 4096], k[:, i:i + 4096].T) for i in range(0, k.shape[0], 4096))
+    del k
+    torch.cuda.empty_cache()
+    a = torch.randn((1000, 37), generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda") / 37 ** 0.5
+    small = {f"{kern} {prec}": torch.equal(kk, kk.T) for kern in KERNEL_NAMES
+             for prec in ("f32", "bf16")
+             for kk in [kernel_block_cuda(a, a, kernel=kern, sigma=1.5, precision=prec)]}
+    return {"kbb_rbf_f32": same, "d37": small}
+
+
+#: columns (rows) at which --crossover times the skinny routes against the
+#: tile route: 10^6 rows of A (columns of B) against n (m) of them
+CROSSOVER_WIDTHS = (1, 2, 4, 8, 16, 24, 32, 48, 64)
+
+
+def block_crossover(x, median_ms) -> dict:
+    """kernel_block's forced routes at few columns (10^6 x n) and few rows
+    (m x 10^6), rbf, f32, each beside its bound."""
+    from repro_torch.kernels import kernel_block as kb
+
+    out = {}
+    for w in CROSSOVER_WIDTHS:
+        few = x[:w].contiguous()
+        for kind, (a, b), routes in (("cols", (x, few), ("skinny_cols", "tile")),
+                                     ("rows", (few, x), ("skinny_rows", "tile"))):
+            m, n = a.shape[0], b.shape[0]
+            out[f"{kind} {w}"] = {
+                **{r: median_ms(lambda a=a, b=b, r=r: kb.launch_route(a, b, kernel="rbf", sigma=1.0,
+                                                                      route=r))
+                   for r in routes},
+                "bound_ms": chip_smoke._bound(m, n, chip_smoke.D, None)["bound_ms"]}
+    return out
 
 if __name__ == "__main__":
     main()
