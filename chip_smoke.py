@@ -17,13 +17,14 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                kernel_matvec at t = 1 on the edges of its t = 1 sweep
                (T1_EDGES: d = 1, 16, 17; n below one staged B tile and one
                past a multiple of it), then kernel_matvec at t > 1 on the
-               edges of its two routes (the multi-column sweep up to t = 16,
+               edges of its two routes (the multi-column sweep up to t = 32,
                the column path above): every kernel x {f32, bf16} x d in {9,
                37} at m = 1001, n = 2999 and t in COLS_T (each column
                width, t % 4 != 0, several column blocks); then the
                multi-column sweep on its own edges: every kernel x {f32,
                bf16} x d in HEADS_D (9, 16, 17, 37) x t in HEADS_T (2 to
-               16: each width W = 2, 4, 8, 12, 16, at it and below it) at
+               32: each width W = 2, 4, 8, 12, 16, 20, 24, 32, at it and
+               below it) at
                n = 2999 with m = 1001 (split over n) and 4097 (above
                SPLIT_M: one range), and at m in HEADS_SPLIT_M (1, 8, 64,
                65) with n at the split's tile edges (split_ns).
@@ -37,7 +38,7 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                x {f32, bf16}: 896 checks, one line a case with its route.
                Tolerances as the JAX package's kernel tests: f32 rtol 2e-4
                / atol 2e-5 x max(1, |ref|max); bf16 rtol 0.05 / atol 0.02 x
-               max(1, |ref|max).  10,598 checks.
+               max(1, |ref|max).  16,646 checks.
   3b. check_multi — the three multi-kernel kernels against their plain
                versions, same tolerances and shapes: the combinations
                (rbf, laplacian, matern52) (l2 + l1 families), (linear,
@@ -56,7 +57,13 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                BLOCK_EDGES (d = 1, 16, 17, 37; n % 4 == 0 with a ragged
                128-column strip, m and n below one tile) and, at
                SAME_EDGES, with b the same tensor as a (the symmetric
-               path) and a copy of it.  440 checks.
+               path) and a copy of it; then the weighted heads ((q,)
+               weights, 2 <= t <= 16) on the multi-column sweep's edges:
+               every combination x {f32, bf16} x d in HEADS_D x t in
+               WEIGHTED_HEADS_T (2, 3, 10, 16, 17) at n = 2999 with m = 1001
+               and 4097, and at m in HEADS_SPLIT_M with n at split_ns
+               (``_check_weighted_heads``, one line a (d, n, m)).  3,320
+               checks.
   3b'. check_split — both t = 1 kernels (kernel_matvec, every kernel; the
                weighted matvec, every MULTI_CASES combination) on the route
                that splits n over the grid (m <= 4096), f32 and bf16, against
@@ -69,8 +76,10 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                bucket (64 x 10^6, split), of the weighted block at the
                refit's K_BB, of the stacked matvec at the tune's sketch, of
                kernel_matvec's column path at t = 100 (20,000^2 x 100) and
-               of its multi-column sweep at 50,000 x 10^6 x 8 and at a
-               10-head serving bucket (64 x 10^6 x 10, split), and of
+               of its multi-column sweep at 50,000 x 10^6 x 8, 20 and 32
+               and at 10- and 32-head serving buckets (64 x 10^6 x t,
+               split), of the weighted heads at 50,000 x 10^6 x 10 and at a
+               10-head bucket (split), and of
                kernel_block on each route (K_BB with b the same tensor: the
                symmetric route, also bitwise its own transpose; K_BB of a
                copy: the tile route; the pivot column 10^6 x 1 and SAP's
@@ -142,7 +151,10 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                on phase 5's search with its 8 weight rows passed in, its
                best equal to phase 5's; a ``kernel="precomputed"`` direct
                fit on a 2,000^2 Gram from ``kernel_block`` against the rbf
-               fit of the same rows.  Each path's launches are read.
+               fit of the same rows; the direct ``tune()`` (3 sigmas, each
+               one stacked CG over 4 lams x 5 folds = 20 columns:
+               kernel_matvec at 20,000^2 x 20) is timed.  Each path's
+               launches are read.
   6d. sap    — the exact SAP methods on the 20,000 tune rows (sigma 1,
                lam_unscaled 1e-4): randomized Newton and NSAP at b = 2,000
                (mu 0.01, nu n / b) for 60 steps, Kaczmarz and CD for 400,
@@ -154,22 +166,28 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                b = 50,000, r = 100, 20 iterations) on
                ``synthetic.krr_one_vs_all`` blobs with 2, 4, 8 and 10
                classes (t heads: kernel_matvec's multi-column sweep at G_B,
-               the prediction and the residual pass): every head's final
-               residual finite and below its start of 1, test accuracy,
-               seconds and the path's launches.
+               the prediction and the residual pass), 20, 24 and 32 (its
+               widths 20, 24 and 32), then 10 classes with the refit's
+               kernels, sigma and weights (``solve(..., kernel=,
+               weights=)``: the weighted heads at G_B, the prediction and
+               the residual pass; the weighted block at K_BB): every head's
+               final residual finite and below its start of 1, test
+               accuracy, seconds and the path's launches.
   6e. serve  — ``repro_torch.serving.ServingEngine`` on the card (max_batch
                1024, max_wait 5 ms) at n = 10^6: phase 4's model saved as an
                artifact, loaded and warmed (8 buckets), then 2,000 requests
                of 1-16 taxi test rows, Poisson at 2,000 requests/s from 4
                client threads; phase 6's multi-kernel model (the weighted
-               t = 1 path) and a 10-head rbf model (random weights from a
-               seed: kernel_matvec's multi-column sweep split over n), 500
-               requests each.  Held: every response within the f32
+               t = 1 path), a 10-head rbf model (random weights from a
+               seed: kernel_matvec's multi-column sweep split over n) and a
+               10-head model of phase 6's kernels, sigma and weights with
+               the same seeded weights (the weighted heads, split over n),
+               500 requests each.  Held: every response within the f32
                tolerance of the plain version, the threaded responses
                bitwise the sequential closure's, the wrapper's launches =
                warm launches + bucket runs, and 8 rows bitwise the same in
-               buckets 8, 64 and 1024, for the taxi model and the 10-head
-               model.
+               buckets 8, 64 and 1024, for the taxi model and both 10-head
+               models.
                Printed: p50 / p99 ms, qps, per-bucket runs and fill.
   6f. dist   — the distributed tier (``repro_torch.distributed``):
                ``solve("askotch", mesh=make_solver_mesh("1x1"))`` at phase
@@ -212,7 +230,10 @@ Phases, each printing its own JSON line; any failure exits non-zero:
                kernel_matvec at t = 100 (50,000 x 10^6, beside the sketch's
                one 10^6-row launch from phase 6b), kernel_block at (10^6, 1)
                and Falkon's two sweeps; and kernel_matvec at a one-vs-all
-               G_B of 2, 4, 8 and 10 heads (50,000 x 10^6 x t); the distributed
+               G_B of 2, 4, 8, 10, 20, 24 and 32 heads (50,000 x 10^6 x t)
+               and at the single-kernel tune's CG apply (20,000^2 x 20), the
+               weighted heads at the multi-kernel one-vs-all's G_B (t = 10)
+               and at its model's buckets of 8, 64 and 1024 queries; the distributed
                tier's (1, 1) Nystrom sketch (50,000^2 x 100) and powering
                (50,000^2, t = 1), and a DC shard's G_B (50,000 x 250,000)
                and K_BB; kernel_block at Falkon's K_mm (20,000^2, b the
@@ -632,6 +653,59 @@ def _check_heads(sigma: float) -> tuple[int, float]:
     return n_checks, worst
 
 
+def _check_weighted_heads() -> tuple[int, float]:
+    """The weighted matvec's heads (static (q,) weights) against its plain
+    version on the multi-column sweep's edges: every MULTI_CASES combination
+    x {f32, bf16} x d in HEADS_D x t in WEIGHTED_HEADS_T, at n = 2999 with
+    m = 1001 (split over n) and 4097 (one range), and at m in HEADS_SPLIT_M
+    with n at split_ns(d).  One line a (d, n, m) with its ranges S; returns
+    (checks, worst error)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.kernel_matvec import t1_splits
+    from repro_torch.kernels.multi import kernel_matvec_multi_cuda
+
+    lib = _build.load("kernel_multi")
+    gen = torch.Generator().manual_seed(27)
+    rng = np.random.default_rng(27)
+    n_checks, worst = 0, 0.0
+    for d in HEADS_D:
+        for edge, n in {"n 2999": 2999, **split_ns(d)}.items():
+            b = (torch.randn((n, d), generator=gen) / math.sqrt(d)).cuda()
+            v = torch.randn((n, max(WEIGHTED_HEADS_T)), generator=gen).cuda()
+            for m in (1001, 4097) if edge == "n 2999" else HEADS_SPLIT_M:
+                a = (torch.randn((m, d), generator=gen) / math.sqrt(d)).cuda()
+                if m > 3:
+                    a[3] = 0.0  # cosine's zero-norm-as-1 rule
+                errs, labels = [], []
+                for t in WEIGHTED_HEADS_T:
+                    vt = v[:, :t].contiguous()
+                    for kernels, sigmas in MULTI_CASES:
+                        w = tuple(float(x) for x in rng.dirichlet(np.ones(len(kernels))))
+                        w_t = torch.tensor(w, device="cuda")
+                        for prec in ("f32", "bf16"):
+                            got = kernel_matvec_multi_cuda(a, b, vt, w, kernels=kernels,
+                                                           sigmas=sigmas, precision=prec)
+                            want = ref.kernel_matvec_multi(a, b, vt, sigmas, w_t, kernels=kernels,
+                                                           precision=prec)
+                            errs.append(_err_on_card(got, want, prec))
+                            labels.append((t, len(kernels), prec))
+                err = torch.stack([e for e, _ in errs]).cpu()
+                ok = torch.stack([k for _, k in errs]).cpu()
+                n_checks += len(labels)
+                worst = max(worst, float(err.max()))
+                emit({"check": "weighted heads", "d": d, "n": n, "edge": edge, "m": m,
+                      "splits": t1_splits(lib, m, n, d), "checks": len(labels),
+                      "max_abs_err": float(err.max()), "ok": bool(ok.all())})
+                if not bool(ok.all()):
+                    bad = [labels[i] for i in range(len(labels)) if not ok[i]]
+                    fail(f"kernel_matvec_multi (weighted heads) d={d} n={n} m={m}: "
+                         f"{bad[:5]} off the plain version (worst err {float(err.max())})")
+    return n_checks, worst
+
+
 def block_route_cases() -> list[tuple[int, int, int, bool]]:
     """(m, n, d, b is a) at which phase check holds each route of
     kernel_block: the few-columns route at n = 1, 2, 3, 16 and one past the
@@ -708,9 +782,10 @@ def phase_check_determinism() -> None:
     stacked matvec at the tune's sketch (20,000^2 x 100), kernel_matvec
     on its column path at a rank-100 sketch (20,000^2 x 100), both t = 1
     kernels on the split route at a serving bucket (64 x 10^6), and
-    kernel_matvec's multi-column sweep at a one-vs-all G_B of 8 heads
-    (50,000 x 10^6 x 8) and at a 10-head serving bucket (64 x 10^6 x 10,
-    split)."""
+    kernel_matvec's multi-column sweep at one-vs-all G_Bs of 8, 20 and 32
+    heads (50,000 x 10^6 x t) and at 10- and 32-head serving buckets (64 x
+    10^6 x t, split), and the weighted heads at a multi-kernel one-vs-all
+    G_B of 10 heads and at a 10-head serving bucket (split)."""
     import torch
 
     from repro_torch.kernels.kernel_block import kernel_block_cuda
@@ -727,8 +802,10 @@ def phase_check_determinism() -> None:
     xt = x[:N_TUNE]
     omega = torch.randn((N_TUNE, RANK), generator=torch.Generator(device="cuda").manual_seed(9),
                         device="cuda")
-    z8, z10 = (torch.randn((N_TRAIN, t), generator=torch.Generator(device="cuda").manual_seed(t),
-                           device="cuda") for t in (8, OVA_HEADS))
+    z8, z10, z32 = (torch.randn((N_TRAIN, t), device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(t))
+                    for t in (8, OVA_HEADS, 32))
+    z20 = z32[:, :20].contiguous()
     runs = {
         "kernel_matvec": ([BLOCK, N_TRAIN, D, 1], lambda: kernel_matvec_cuda(
             xb, x, z, kernel="rbf", sigma=SIGMA, precision="f32")),
@@ -750,6 +827,19 @@ def phase_check_determinism() -> None:
         f"kernel_matvec (split, m = 64, t = {OVA_HEADS})": (
             [SMALL_M, N_TRAIN, D, OVA_HEADS], lambda: kernel_matvec_cuda(
                 xb[:SMALL_M], x, z10, kernel="rbf", sigma=SIGMA, precision="f32")),
+        "kernel_matvec (t = 20)": ([BLOCK, N_TRAIN, D, 20], lambda: kernel_matvec_cuda(
+            xb, x, z20, kernel="rbf", sigma=SIGMA, precision="f32")),
+        "kernel_matvec (t = 32)": ([BLOCK, N_TRAIN, D, 32], lambda: kernel_matvec_cuda(
+            xb, x, z32, kernel="rbf", sigma=SIGMA, precision="f32")),
+        "kernel_matvec (split, m = 64, t = 32)": (
+            [SMALL_M, N_TRAIN, D, 32], lambda: kernel_matvec_cuda(
+                xb[:SMALL_M], x, z32, kernel="rbf", sigma=SIGMA, precision="f32")),
+        f"kernel_matvec_multi (t = {OVA_HEADS})": (
+            [BLOCK, N_TRAIN, D, OVA_HEADS], lambda: kernel_matvec_multi_cuda(
+                xb, x, z10, w, kernels=MK_KERNELS, sigmas=sg, precision="f32")),
+        f"kernel_matvec_multi (split, m = 64, t = {OVA_HEADS})": (
+            [SMALL_M, N_TRAIN, D, OVA_HEADS], lambda: kernel_matvec_multi_cuda(
+                xb[:SMALL_M], x, z10, w, kernels=MK_KERNELS, sigmas=sg, precision="f32")),
     }
     # kernel_block on each route at its path's shape: K_BB (b is a: the
     # symmetric route; b a copy: the tile route), the pivot column (few
@@ -782,7 +872,7 @@ def phase_check_determinism() -> None:
                  f"(max {float((first - second).abs().max())})")
         del first, second
         torch.cuda.empty_cache()
-    del x, xb, z, omega, z8, z10, xb_copy
+    del x, xb, z, omega, z8, z10, z20, z32, xb_copy
     torch.cuda.empty_cache()
 
 
@@ -806,23 +896,28 @@ T1_EDGES = [(1, 3001), (16, 3001), (17, 3001), (9, 100), (9, 257), (37, 50), (37
 
 
 #: kernel_matvec's widths t > 1 in phase check: its multi-column sweep (2,
-#: 3, 8, 9 and 10: widths 2, 4, 8 and 12), then its column path: the
-#: narrow blocks (17, 20 and 32 in a 32-column block: the narrowest t there,
-#: the single-kernel tune's 4 lams x 5 folds and the block's edge; 33 and
-#: 64 in a 64-column one), the sketch's rank 100 (one 128-column block, cw
-#: 100), the edges of the 128- and 160-column blocks (128; 129 in one
-#: 160-column block; 160) and several blocks (161: two of 84 columns; 321:
-#: three of 108); the column path's V is padded to a multiple of 4 columns
+#: 3, 8, 9 and 10: widths 2, 4, 8 and 12; 17, 20 and 32: widths 20 and 32,
+#: the single-kernel tune's 4 lams x 5 folds among them), then its column
+#: path: 33 and 64 in a 64-column block, the sketch's rank 100 (one
+#: 128-column block, cw 100), the edges of the 128- and 160-column blocks
+#: (128; 129 in one 160-column block; 160) and several blocks (161: two of
+#: 84 columns; 321: three of 108); the column path's V is padded to a
+#: multiple of 4 columns
 COLS_T = (2, 3, 8, 9, 10, 17, 20, 32, 33, 64, 100, 128, 129, 160, 161, 321)
 
 #: the multi-column sweep's edges in phase check: each width W (2, 4, 8, 12,
-#: 16) at t = W and below it (3, 5, 9, 10, 13), at feature widths 9 and 16
-#: (256-row staged tiles) and 17 and 37 (the slab loop, 64-row tiles); rows
-#: of A on the split route (m <= 4096): one row, a bucket of 8, a block's
-#: 64 rows and one more
-HEADS_T = (2, 3, 5, 8, 9, 10, 12, 13, 16)
+#: 16, 20, 24, 32) at t = W and below it (3, 5, 9, 10, 13, 17, 21, 25), at
+#: feature widths 9 and 16 (256-row staged tiles) and 17 and 37 (the slab
+#: loop, 64-row tiles); rows of A on the split route (m <= 4096): one row,
+#: a bucket of 8, a block's 64 rows and one more
+HEADS_T = (2, 3, 5, 8, 9, 10, 12, 13, 16, 17, 20, 21, 24, 25, 32)
 HEADS_D = (9, 16, 17, 37)
 HEADS_SPLIT_M = (1, 8, 64, 65)
+
+#: the weighted matvec's heads (static weights) in check_multi: widths 2,
+#: 4, 12 and 16 at or below their edge, and 17, the first t of the column
+#: path, on the multi-column sweep's edges (HEADS_D, split_ns)
+WEIGHTED_HEADS_T = (2, 3, 10, 16, 17)
 
 #: the widths at which check_multi also holds the weighted matvec's column
 #: path: the tune's 160 columns (one 160-column block), 161 (two 128-column
@@ -1006,8 +1101,11 @@ def phase_check_multi() -> dict:
                                                   weights=w, precision=prec)
                     check("kernel_block_multi", got, want, prec, kernels=list(kernels), d=d,
                           m=m_e, operands=label)
+    heads_checks, heads_worst = _check_weighted_heads()
+    worst["kernel_matvec_multi"] = max(worst["kernel_matvec_multi"], heads_worst)
     emit({"phase": "check_multi", "m": m, "n": n, "t": [t, *WIDE_T], "t1_edges": T1_EDGES,
           "stacked_t": STACKED_T, "block_edges": BLOCK_EDGES, "checks": n_checks,
+          "weighted_heads_t": WEIGHTED_HEADS_T, "weighted_heads_checks": heads_checks,
           "worst_abs_err": worst})
     return worst
 
@@ -1623,9 +1721,16 @@ def phase_estimators(solve_rec: dict, solve_w, tune_result) -> dict:
     torch.cuda.synchronize()
     cv_s = time.perf_counter() - t0
     cv_launches = ops.launches()
+    # the single-kernel tune: per sigma one stacked CG over 4 lams x 5 folds
+    # = 20 columns (kernel_matvec's multi-column sweep at 20,000^2 x 20)
+    ops.reset_launches()
+    t0 = time.perf_counter()
     direct = tune(KRRProblem(x=xs, y=ys, kernel="rbf", precision="f32"), sigmas=CV_SIGMAS,
                   lams=tuple(a / N_TUNE for a in alphas), folds=K_FOLDS, policy="grid", seed=0,
                   **tune_opts)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    tune_launches = ops.launches()
     direct_best = {"alpha": float(direct.best["lam_unscaled"]) * N_TUNE,
                    "sigma": direct.best["sigma"]}
 
@@ -1661,6 +1766,8 @@ def phase_estimators(solve_rec: dict, solve_w, tune_result) -> dict:
                                "best_params": cv.best_params_, "tune_best": direct_best,
                                "refit_iters": cv.solve_info_.get("iters"),
                                "launches": cv_launches},
+           "tune": {"n": N_TUNE, "sigmas": CV_SIGMAS, "columns": len(TUNE_LAMS) * K_FOLDS,
+                    "seconds": tune_s, "sweeps": direct.sweeps, "launches": tune_launches},
            "multiple_kernel_ridge_cv": {"n": N_TUNE, "seconds": mk_s,
                                         "sweeps": mk.tune_result_.sweeps,
                                         "best_params": mk.best_params_,
@@ -1674,6 +1781,7 @@ def phase_estimators(solve_rec: dict, solve_w, tune_result) -> dict:
              pre=pre_pred)
     _path_launches(kr_launches, ("kernel_matvec", "kernel_block"), "KernelRidge")
     _path_launches(cv_launches, ("kernel_matvec", "kernel_block"), "KernelRidgeCV")
+    _path_launches(tune_launches, ("kernel_matvec",), "tune (single kernel)")
     _path_launches(mk_launches, ("kernel_matvec_multi", "kernel_matvec_components",
                                  "kernel_block_multi"), "MultipleKernelRidgeCV")
     _path_launches(pre_launches, ("kernel_block",), "precomputed")
@@ -1830,15 +1938,18 @@ def phase_check_split() -> dict:
     return rec
 
 
-#: one-vs-all classes of phase ova (t heads of one multi-RHS solve)
-OVA_CLASSES = (2, 4, 8, OVA_HEADS)
+#: one-vs-all classes of phase ova (t heads of one multi-RHS solve): the
+#: multi-column sweep's widths up to 10 heads, then 20, 24 and 32
+OVA_CLASSES = (2, 4, 8, OVA_HEADS, 20, 24, 32)
 
 
-def phase_ova() -> dict:
+def phase_ova(refit_best: dict) -> dict:
     """One-vs-all askotch solves at phase solve's configuration on blobs of
     OVA_CLASSES classes (kernel_matvec's multi-column sweep at G_B, the
-    prediction and the residual pass).  Returns each path's launches, by
-    ``"ova <classes>"``."""
+    prediction and the residual pass), then a multi-kernel one-vs-all of
+    OVA_HEADS classes with the refit's kernels, sigma and weights (the
+    weighted heads; the weighted block at K_BB).  Returns each path's
+    launches, by ``"ova <classes>"`` and ``"ova multikernel"``."""
     import torch
 
     from repro_torch.core.krr import KRRProblem, evaluate
@@ -1846,34 +1957,39 @@ def phase_ova() -> dict:
     from repro_torch.data import synthetic
     from repro_torch.kernels import ops
 
+    mk = {"kernel": tuple(refit_best["kernel"]), "weights": tuple(refit_best["weights"])}
     launches = {}
-    for classes in OVA_CLASSES:
+    for classes, label, over in (*((c, f"ova {c}", {}) for c in OVA_CLASSES),
+                                 (OVA_HEADS, "ova multikernel", mk)):
         x, y, _, x_te, y_te, _ = synthetic.krr_one_vs_all(
             0, N_TRAIN, D, num_classes=classes, n_test=N_TEST, device="cuda")
-        problem = KRRProblem(x=x, y=y, kernel="rbf", sigma=SIGMA, lam_unscaled=LAM_UNSCALED,
+        sigma = refit_best["sigma"] if over else SIGMA
+        problem = KRRProblem(x=x, y=y, kernel="rbf", sigma=sigma, lam_unscaled=LAM_UNSCALED,
                              precision="f32")
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
         out = solve(problem, "askotch", block_size=BLOCK, rank=RANK, max_iters=MAX_ITERS,
-                    eval_every=MAX_ITERS)
+                    eval_every=MAX_ITERS, **over)
         pred = out.predict_fn(x_te)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches[f"ova {classes}"] = ops.launches()
+        launches[label] = ops.launches()
         heads = [float(h) for h in out.info["rel_residual_per_head"]]
         acc = float(evaluate(pred, y_te).accuracy)
         emit({"phase": "ova", "classes": classes, "n": N_TRAIN, "n_test": N_TEST, "d": D,
+              "kernel": list(over.get("kernel", ("rbf",))), "sigma": sigma,
+              "weights": list(over.get("weights", (1.0,))),
               "iters": out.info["iters"], "rel_residual": out.history[-1]["rel_residual"],
               "rel_residual_per_head": heads, "test_accuracy": acc, "seconds": seconds,
-              "launches": launches[f"ova {classes}"]})
-        _on_card(f"ova {classes}", w=out.w, pred=pred)
-        _path_launches(launches[f"ova {classes}"], ("kernel_matvec", "kernel_block"),
-                       f"ova {classes}")
+              "launches": launches[label]})
+        _on_card(label, w=out.w, pred=pred)
+        _path_launches(launches[label], ("kernel_matvec_multi", "kernel_block_multi") if over
+                       else ("kernel_matvec", "kernel_block"), label)
         if not all(math.isfinite(h) and h < 1.0 for h in heads):
-            fail(f"ova {classes}: a head's final residual is not finite and below 1: {heads}")
+            fail(f"{label}: a head's final residual is not finite and below 1: {heads}")
         if pred.shape != (N_TEST, classes) or not math.isfinite(acc):
-            fail(f"ova {classes}: prediction {tuple(pred.shape)}, accuracy {acc}")
+            fail(f"{label}: prediction {tuple(pred.shape)}, accuracy {acc}")
         del x, y, x_te, y_te, problem, out, pred
         torch.cuda.empty_cache()
     return launches
@@ -1998,11 +2114,13 @@ def _serve_model(engine, name: str, config: dict, x, w, requests: int, seed: int
 def phase_serve(solve_w, refit_best: dict, refit_w) -> list[dict]:
     """The serving engine on the card at full width (n = 10^6 taxi rows):
     phase solve's model saved as an artifact and loaded, 2,000 requests;
-    phase refit's multi-kernel model (the weighted t = 1 path) and a
-    10-head model (random weights from a seed; kernel_matvec's multi-column
-    sweep, split over n), 500 requests each.  Also the same 8 rows bitwise
-    in buckets of 8, 64 and 1024 rows, on the taxi model and the 10-head
-    model."""
+    phase refit's multi-kernel model (the weighted t = 1 path), a 10-head
+    model (random weights from a seed; kernel_matvec's multi-column sweep,
+    split over n) and a multi-kernel 10-head model (the refit's kernels,
+    sigma and weights with the same seeded weights; the weighted heads,
+    split over n), 500 requests each.  Also the same 8 rows bitwise in
+    buckets of 8, 64 and 1024 rows, on the taxi model and both 10-head
+    models."""
     import shutil
 
     import numpy as np
@@ -2027,6 +2145,7 @@ def phase_serve(solve_w, refit_best: dict, refit_w) -> list[dict]:
     mk_w = torch.tensor(refit_best["weights"], device="cuda")
     w_heads = torch.randn((N_TRAIN, OVA_HEADS),
                           generator=torch.Generator(device="cuda").manual_seed(17), device="cuda")
+    heads_cfg = {"kernel": "rbf", "sigma": SIGMA}
     recs = []
     with ServingEngine(max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS) as engine:
         recs.append(_serve_model(
@@ -2038,16 +2157,22 @@ def phase_serve(solve_w, refit_best: dict, refit_w) -> list[dict]:
             lambda q: ref.kernel_matvec_multi(q, xt, refit_w, mk_sig, mk_w, kernels=kernels),
             pool))
         recs.append(_serve_model(
-            engine, f"taxi_{OVA_HEADS}_heads", {"kernel": "rbf", "sigma": SIGMA}, xt, w_heads,
+            engine, f"taxi_{OVA_HEADS}_heads", heads_cfg, xt, w_heads,
             SERVE_SIDE_REQUESTS, 23, "kernel_matvec",
             lambda q: ref.kernel_matvec(q, xt, w_heads, SIGMA), pool))
+        recs.append(_serve_model(
+            engine, f"taxi_multikernel_{OVA_HEADS}_heads", mk_cfg, xt, w_heads,
+            SERVE_SIDE_REQUESTS, 24, "kernel_matvec_multi",
+            lambda q: ref.kernel_matvec_multi(q, xt, w_heads, mk_sig, mk_w, kernels=kernels),
+            pool))
     shutil.rmtree(art.parent)  # 40 MB: the output directory keeps logs, not models
     # the same 8 rows in buckets of 8, 64 and 1024 rows, other rows beside
-    # them, on the taxi model (t = 1) and the 10-head model
+    # them, on the taxi model (t = 1) and both 10-head models
     rows = pool[:8]
     same = {}
-    for model, w in (("taxi", solve_w), (f"taxi_{OVA_HEADS}_heads", w_heads)):
-        predict = make_krr_predict_fn_from_config(cfg, xt, w, max_batch=SERVE_MAX_BATCH)
+    for model, c, w in (("taxi", cfg, solve_w), (f"taxi_{OVA_HEADS}_heads", heads_cfg, w_heads),
+                        (f"taxi_multikernel_{OVA_HEADS}_heads", mk_cfg, w_heads)):
+        predict = make_krr_predict_fn_from_config(c, xt, w, max_batch=SERVE_MAX_BATCH)
         base = predict(rows).cpu().numpy()
         for bucket, at in ((64, 37), (1024, 1000)):
             q = pool[100:100 + bucket].copy()
@@ -2758,10 +2883,10 @@ def time_with_floor_ms(fn, reps: int = 5) -> tuple[float, float]:
     return statistics.median(ks), statistics.median(fs)
 
 
-def _time_case(fn, plain_fn, bound: dict, floor: bool = False) -> dict:
-    """Time a kernel (median of 5) and its plain version (median of 3,
-    after the warm-up whose result the kernel's is held against); with
-    ``floor`` also the write floor on the kernel's output
+def _time_case(fn, plain_fn, bound: dict, floor: bool = False, plain_reps: int = 3) -> dict:
+    """Time a kernel (median of 5) and its plain version (median of
+    ``plain_reps``, after the warm-up whose result the kernel's is held
+    against); with ``floor`` also the write floor on the kernel's output
     (``time_with_floor_ms``)."""
     import torch
 
@@ -2771,7 +2896,7 @@ def _time_case(fn, plain_fn, bound: dict, floor: bool = False) -> dict:
         ms, extra["write_floor_ms"] = time_with_floor_ms(fn)
     else:
         ms = _time_ms(fn, hold=True)
-    plain_ms = _time_ms(plain_fn, reps=3, warm=False, hold=True)
+    plain_ms = _time_ms(plain_fn, reps=plain_reps, warm=False, hold=True)
     err, ok = _err(fn(), want, "f32")
     del want
     torch.cuda.empty_cache()
@@ -2783,7 +2908,9 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
     """Time every kernel at its main-path shapes.  ``launches`` holds each
     path's counts (``"solve"``, ``"tune"``, ``"refit"``, phase ova's
     ``"ova <classes>"``, and phase serve's models ``"serve taxi"``,
-    ``"serve multikernel"``, ``"serve heads"``: each path's reset and read), ``weights`` the refit's combination,
+    ``"serve multikernel"``, ``"serve heads"``, ``"serve multikernel heads"``, phase
+    ova's ``"ova multikernel"`` and phase estimators' ``"estimators tune"``:
+    each path's reset and read), ``weights`` the refit's combination,
     ``tune_wc`` the tune's (q, C) per-column weights and ``baselines``
     phase ``baselines``' records (their launches and the sketch's time).
     One row per (kernel, path shape); ``path`` names the run whose count
@@ -2908,8 +3035,8 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
                       _bound_multi(SMALL_M, N_TRAIN, D, 1, ks, "matvec"))},
     ]
     # kernel_matvec with t heads on its multi-column sweep: a one-vs-all G_B
-    # of 2, 4, 8 and OVA_HEADS classes (phase ova's paths), and serving
-    # buckets of the OVA_HEADS-head model (split over n)
+    # of each of OVA_CLASSES (phase ova's paths), and serving buckets of the
+    # OVA_HEADS-head model (split over n)
     gen_ova = torch.Generator(device="cuda").manual_seed(15)
     for t in OVA_CLASSES:
         z_ova = torch.randn((N_TRAIN, t), generator=gen_ova, device="cuda")
@@ -2920,17 +3047,53 @@ def phase_time(launches: dict, weights: tuple[float, ...], tune_wc, baselines: l
                                                      precision="f32"),
                           lambda: ref.kernel_matvec(xb, x, z_ova, SIGMA, kernel="rbf"),
                           _bound(BLOCK, N_TRAIN, D, t))})
-    # z_ova holds OVA_HEADS columns now: OVA_CLASSES ends with it
+        if t == OVA_HEADS:
+            z10 = z_ova
+    del z_ova
     heads_path = {"path": "serve heads", "launches": launches["serve heads"]["kernel_matvec"]}
     for m_q in (8, SMALL_M, 1024):
         rows.append(
             {**mv_id, "case": f"serve bucket {m_q} (t = {OVA_HEADS})", **heads_path,
              "shape": [m_q, N_TRAIN, D, OVA_HEADS],
-             **_time_case(lambda: kernel_matvec_cuda(xb[:m_q], x, z_ova, kernel="rbf",
+             **_time_case(lambda: kernel_matvec_cuda(xb[:m_q], x, z10, kernel="rbf",
                                                      sigma=SIGMA, precision="f32"),
-                          lambda: ref.kernel_matvec(xb[:m_q], x, z_ova, SIGMA, kernel="rbf"),
+                          lambda: ref.kernel_matvec(xb[:m_q], x, z10, SIGMA, kernel="rbf"),
                           _bound(m_q, N_TRAIN, D, OVA_HEADS))})
-    del z_ova
+    # the single-kernel tune's stacked CG: 4 lams x 5 folds = 20 columns over
+    # the 20,000 tune rows (phase estimators' tune)
+    tune_t = len(TUNE_LAMS) * K_FOLDS
+    v_tune = torch.randn((N_TUNE, tune_t), generator=gen_ova, device="cuda")
+    rows.append(
+        {**mv_id, "case": f"tune CG apply (t = {tune_t})", "path": "estimators tune",
+         "launches": launches["estimators tune"]["kernel_matvec"],
+         "shape": [N_TUNE, N_TUNE, D, tune_t],
+         **_time_case(lambda: kernel_matvec_cuda(xt, xt, v_tune, kernel="rbf", sigma=SIGMA,
+                                                 precision="f32"),
+                      lambda: ref.kernel_matvec(xt, xt, v_tune, SIGMA, kernel="rbf"),
+                      _bound(N_TUNE, N_TUNE, D, tune_t))})
+    # the weighted heads: a multi-kernel one-vs-all G_B of OVA_HEADS classes
+    # (phase ova's) and the buckets of the multi-kernel OVA_HEADS-head model,
+    # the refit's combination; the plain G_B is timed once (~8 s a call)
+    mk_heads = {"path": "serve multikernel heads",
+                "launches": launches["serve multikernel heads"]["kernel_matvec_multi"]}
+    rows.append(
+        {**mm_id, "case": f"multi-kernel one-vs-all G_B (t = {OVA_HEADS})",
+         "path": "ova multikernel",
+         "launches": launches["ova multikernel"]["kernel_matvec_multi"],
+         "shape": [BLOCK, N_TRAIN, D, OVA_HEADS],
+         **_time_case(lambda: kernel_matvec_multi_cuda(xb, x, z10, weights, kernels=ks, sigmas=sg,
+                                                       precision="f32"),
+                      lambda: ref.kernel_matvec_multi(xb, x, z10, sg, w_t, kernels=ks),
+                      _bound_multi(BLOCK, N_TRAIN, D, OVA_HEADS, ks, "matvec"), plain_reps=1)})
+    for m_q in (8, SMALL_M, 1024):
+        rows.append(
+            {**mm_id, "case": f"serve bucket {m_q} (weighted, t = {OVA_HEADS})", **mk_heads,
+             "shape": [m_q, N_TRAIN, D, OVA_HEADS],
+             **_time_case(lambda: kernel_matvec_multi_cuda(xb[:m_q], x, z10, weights, kernels=ks,
+                                                           sigmas=sg, precision="f32"),
+                          lambda: ref.kernel_matvec_multi(xb[:m_q], x, z10, sg, w_t, kernels=ks),
+                          _bound_multi(m_q, N_TRAIN, D, OVA_HEADS, ks, "matvec"))})
+    del z10, v_tune
     # the baselines' new shapes: pcg-nystrom's sketch at t = 100 (timed at
     # G_B's 50,000 rows, beside the sketch's one 10^6-row launch from the
     # phase), an RPCholesky pivot column and Falkon's two sweeps
@@ -3886,17 +4049,19 @@ def main() -> int:
     tune_rec, tune_result = phase_tune()
     refit_rec, refit_w = phase_refit(tune_result.best)
     baseline_recs = phase_baselines()
-    phase_estimators(solve_rec, solve_w, tune_result)
+    est_rec = phase_estimators(solve_rec, solve_w, tune_result)
     sap_recs = phase_sap()
-    ova_launches = phase_ova()
+    ova_launches = phase_ova(tune_result.best)
     serve_recs = phase_serve(solve_w, tune_result.best, refit_w)
     dist_launches = phase_dist(solve_rec, solve_w)
     del solve_w, refit_w
     # each path's launch counts, from its own reset and read
     launches = {"solve": solve_rec["launches"], "tune": tune_rec["launches"],
                 "refit": refit_rec["launches"],
+                "estimators tune": est_rec["tune"]["launches"],
                 **{f"serve {k}": r["launches"] for k, r in zip(
-                    ("taxi", "multikernel", "heads"), serve_recs)}, **ova_launches,
+                    ("taxi", "multikernel", "heads", "multikernel heads"), serve_recs)},
+                **ova_launches,
                 **dist_launches, **{f"sap {r['method']}": r["launches"] for r in sap_recs}}
     rows = phase_time(launches, tuple(tune_result.best["weights"]),
                       _tune_weight_cols(tune_result), baseline_recs)

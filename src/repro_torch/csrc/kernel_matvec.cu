@@ -10,7 +10,7 @@
 // n = 10^6, d = 9, t = 1) the work is ~1.2e12 f32 operations plus 5e10 exp,
 // while the bytes (B is 36 MB) are negligible.  The time is in issued
 // instructions per pair, not in memory (PERF.md has the measurements).
-// Three routes, chosen by t (and, at t = 1 and 2 <= t <= 16, a split of n
+// Three routes, chosen by t (and, at t = 1 and 2 <= t <= 32, a split of n
 // up to 4096 rows of A):
 //
 // t == 1 (G_B, the residual pass, the prediction, a single-head serving
@@ -25,11 +25,12 @@
 // ex2(x log2 e) costs nothing more), the ex2 (one special-function
 // operation a pair) and one FMA with v.
 //
-// 2 <= t <= 16 (one-vs-all with up to 16 classes: its G_B, residual pass
-// and prediction; Falkon's and EigenPro's sweeps with t heads; a t-head
-// serving bucket; the distributed primitives at t = 8) runs on the same
-// sweep at W value columns (kernel_matvec_tk_kernel, W = tk_width(t): 2, 4,
-// 8, 12 or 16): the pack writes [b, ||b||^2, v_0 .. v_{W-1}] rows (V's
+// 2 <= t <= 32 (one-vs-all with up to 32 classes: its G_B, residual pass
+// and prediction; the single-kernel tune's CG over its 4 lams x 5 folds;
+// Falkon's and EigenPro's sweeps with t heads; a t-head serving bucket; the
+// distributed primitives at t = 8) runs on the same sweep at W value
+// columns (kernel_matvec_tk_kernel, W = t1::width_of(t): 2, 4, 8, 12, 16,
+// 20, 24 or 32): the pack writes [b, ||b||^2, v_0 .. v_{W-1}] rows (V's
 // columns past t zero), each pair's kernel value is formed once as at
 // t = 1 and used in W FMAs into the thread's 2 x W row sums, and a B row's
 // W values are W / 4 broadcast float4 loads from the staged tile, shared by
@@ -51,11 +52,18 @@
 // column path: 59.0 ms, 2 of the 132 SMs busy, no split).  Its inner loop
 // (tools/sass_torch_loops.py, a group of 16 pairs): 374 instructions at
 // W = 8 (288 FFMA, 48 LDS, 16 MUFU), 446 at W = 12, 522 at W = 16, against
-// the t = 1 sweep's 239 (176 FFMA, 24 LDS, 16 MUFU).
+// the t = 1 sweep's 239 (176 FFMA, 24 LDS, 16 MUFU).  The widths 20, 24
+// and 32 hold 40 to 64 row sums a thread: W = 32 runs one block an SM (its
+// 2 x 32 sums and a 135 KB ring of 176-byte rows fit no second one), and
+// so do 20 and 24 above 9 features (tk_min_blocks).  Measured in one run
+// (the same tool, parent and change in turn) at the one-vs-all G_B: 79.5
+// ms at t = 17 and 20, 88.6 at 24, 114.7 at 25 and 32, against 230.7-234.6
+// on the column path at each; at the single-kernel tune's CG apply
+// (20,000^2 x 20) 0.83 ms against 2.17-2.19.  So the sweep takes 2 <= t <=
+// 32 at every m.
 //
-// t > 16 (pcg-nystrom's and the single-kernel tune's sketches K Omega, the
-// tune's CG apply over its lam x fold columns, a one-vs-all with more than
-// 16 classes) runs on the column path of sweep_cols.cuh, shared with the
+// t > 32 (pcg-nystrom's sketch K Omega at rank 100, a one-vs-all with more
+// than 32 classes) runs on the column path of sweep_cols.cuh, shared with the
 // weighted and stacked matvecs, with one kernel fixed at compile time
 // (kernel_matvec_cols_kernel): no table, no weight rows, one 16 x 32 kernel
 // tile a B tile.  Each pair's kernel value is formed once per 16-row B tile
@@ -84,8 +92,8 @@
 // Built in PK_PARTS parts that compile in parallel and link into one
 // library (kernels/_build.py reads the count from the #define below):
 // -DPK_PART=0 is the t = 1 sweep, the column path and the C entry points,
-// -DPK_PART=i > 0 the multi-column sweep at width TK_WIDTHS[i - 1].
-#define PK_PARTS 6
+// -DPK_PART=i > 0 the multi-column sweep at width t1::WIDTHS[i - 1].
+#define PK_PARTS 9
 #ifndef PK_PART
 #error "kernel_matvec.cu is built in parts: -DPK_PART=0 .. PK_PARTS - 1 (kernels/_build.py)"
 #endif
@@ -180,27 +188,22 @@ static cudaError_t launch_t1(const T* a, const T* b, const T* v, float* out, int
 }
 
 // ---------------------------------------------------------------------------
-// 2 <= t <= 16: the multi-column sweep (sweep_t1.cuh at W value columns)
+// 2 <= t <= 32: the multi-column sweep (sweep_t1.cuh at W value columns)
 // ---------------------------------------------------------------------------
 
-// The widths W the sweep is built at; a launch of t columns takes the
-// smallest W >= t (the pack zero-fills V's columns t .. W - 1).
-constexpr int TK_WIDTHS[] = {2, 4, 8, 12, 16};
-constexpr int TK_PARTS = sizeof(TK_WIDTHS) / sizeof(TK_WIDTHS[0]);
-constexpr int TK_MAX = TK_WIDTHS[TK_PARTS - 1];
-static_assert(PK_PARTS == 1 + TK_PARTS, "kernel_matvec.cu is built in 1 + TK_PARTS parts");
+// Every width of t1::WIDTHS is built, each a part of its own.
+constexpr int TK_MAX = t1::WIDTHS[t1::N_WIDTHS - 1];
+static_assert(PK_PARTS == 1 + t1::N_WIDTHS, "kernel_matvec.cu is built in 1 + N_WIDTHS parts");
 static_assert(PK_PART >= 0 && PK_PART < PK_PARTS, "PK_PART is out of range");
-constexpr int tk_width(int t) {
-  for (const int w : TK_WIDTHS)
-    if (t <= w) return w;
-  return TK_MAX;
-}
 
 // Blocks an SM must hold: three (80 registers) at 9 feature slots and up to
 // 4 columns (as t1_min_blocks); two (128 registers) for the 2 x W row sums
-// of the wider sweeps, the 16-wide A tile, the slab loop and cosine.
+// of the wider sweeps up to W = 16, the 16-wide A tile, the slab loop and
+// cosine, and at W = 20 and 24 with A's 9 feature slots in registers; one
+// (255 registers at most) where ptxas spills at 128: W = 20 and 24 with 16
+// feature slots or the slab loop, and W = 32 (64 row sums).
 __host__ __device__ constexpr int tk_min_blocks(int kid, int nf, bool slab, int w) {
-  return w <= 4 ? t1_min_blocks(kid, nf, slab) : 2;
+  return w <= 4 ? t1_min_blocks(kid, nf, slab) : w <= 16 || (w <= 24 && nf == 9 && !slab) ? 2 : 1;
 }
 
 // out (m, t) = K(A, B) @ V, 2 <= t <= W, on the sweep over the packed B (bp:
@@ -231,30 +234,10 @@ kernel_matvec_tk_kernel(const T* __restrict__ a, const float* __restrict__ bp,
 #pragma unroll
           for (int r = 0; r < t1::R; ++r)
             kv[r] = pair_value<KID, BF16>(acc[r][j], acc1[r][j], a2[r], b2[j], mc, m2rs);
-          const float* vr = grp + j * SP + (SP - W);
-          if constexpr (W == 2) {
-            const float2 x = *reinterpret_cast<const float2*>(vr);
-#pragma unroll
-            for (int r = 0; r < t1::R; ++r) {
-              o[r][0] = fmaf(kv[r], x.x, o[r][0]);
-              o[r][1] = fmaf(kv[r], x.y, o[r][1]);
-            }
-          } else {
-#pragma unroll
-            for (int c = 0; c < W; c += 4) {
-              const float4 x = *reinterpret_cast<const float4*>(vr + c);
-#pragma unroll
-              for (int r = 0; r < t1::R; ++r) {
-                o[r][c] = fmaf(kv[r], x.x, o[r][c]);
-                o[r][c + 1] = fmaf(kv[r], x.y, o[r][c + 1]);
-                o[r][c + 2] = fmaf(kv[r], x.z, o[r][c + 2]);
-                o[r][c + 3] = fmaf(kv[r], x.w, o[r][c + 3]);
-              }
-            }
-          }
+          t1::add_values<W>(o, kv, grp + j * SP + (SP - W), [](float x) { return x; });
         }
       });
-  t1::write_cols<W>(o, t1_smem, out, m, t);
+  t1::write_cols<W>(o, t1_smem, out, m, t, false);
 }
 
 template <typename T, int KID, int W>
@@ -380,7 +363,7 @@ static cudaError_t launch_cols(const float* a, const float* b, const float* v, f
 
 #if PK_PART > 0
 // A part of the library: the sweep at one width.
-template int launch_tk_width<TK_WIDTHS[PK_PART - 1]>(const LaunchArgs&);
+template int launch_tk_width<t1::WIDTHS[PK_PART - 1]>(const LaunchArgs&);
 #else
 // Part 0: the widths are instantiated in the other parts.
 extern template int launch_tk_width<2>(const LaunchArgs&);
@@ -388,6 +371,9 @@ extern template int launch_tk_width<4>(const LaunchArgs&);
 extern template int launch_tk_width<8>(const LaunchArgs&);
 extern template int launch_tk_width<12>(const LaunchArgs&);
 extern template int launch_tk_width<16>(const LaunchArgs&);
+extern template int launch_tk_width<20>(const LaunchArgs&);
+extern template int launch_tk_width<24>(const LaunchArgs&);
+extern template int launch_tk_width<32>(const LaunchArgs&);
 
 // The widest t that runs on the multi-column sweep; the wrapper sends wider
 // V to the column path as f32 padded to a multiple of 4 columns.
@@ -395,17 +381,17 @@ extern "C" int kernel_matvec_sweep_t_max() { return TK_MAX; }
 
 // Floats of the scratch a launch of m rows and t columns needs for B of n
 // rows and d features: t = 1, the t = 1 sweep's (sweep_t1_scratch_floats);
-// 2 <= t <= 16, the packed B with its W = tk_width(t) values a row, then
-// the (S, m, t) partials of a launch split over n; t > 16, none.
+// 2 <= t <= 32, the packed B with its W = t1::width_of(t) values a row,
+// then the (S, m, t) partials of a launch split over n; t > 32, none.
 extern "C" long long kernel_matvec_scratch_floats(long long m, long long n, int d, int t) {
   if (m < 0 || n < 0 || d < 1 || t < 1 || t > TK_MAX) return 0;
-  return (long long)t1::scratch_floats(m, n, d, t == 1 ? 1 : tk_width(t), t);
+  return (long long)t1::scratch_floats(m, n, d, t == 1 ? 1 : t1::width_of(t), t);
 }
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// d, t >= 1.  t <= 16: bf16 != 0 reads A, B and V as __nv_bfloat16, else
+// d, t >= 1.  t <= 32: bf16 != 0 reads A, B and V as __nv_bfloat16, else
 // as float, and needs `scratch`: kernel_matvec_scratch_floats(m, n, d, t)
-// floats of device memory; V is (n, t).  t > 16: A, B and V are float
+// floats of device memory; V is (n, t).  t > 32: A, B and V are float
 // (bf16 != 0: holding bf16-rounded values, and K is rounded to bf16 before
 // its product with V); `scratch` is unused.
 extern "C" int kernel_matvec_launch(const void* a, const void* b, const void* v, void* out,
@@ -429,12 +415,15 @@ extern "C" int kernel_matvec_launch(const void* a, const void* b, const void* v,
   }
   if (t <= TK_MAX) {  // the multi-column sweep, at every m (the crossover in the note)
     const LaunchArgs x{a, b, v, (float*)out, m, n, d, t, sigma, kernel_id, bf16, (float*)scratch, s};
-    switch (tk_width(t)) {
+    switch (t1::width_of(t)) {
       case 2: return launch_tk_width<2>(x);
       case 4: return launch_tk_width<4>(x);
       case 8: return launch_tk_width<8>(x);
       case 12: return launch_tk_width<12>(x);
-      default: return launch_tk_width<16>(x);
+      case 16: return launch_tk_width<16>(x);
+      case 20: return launch_tk_width<20>(x);
+      case 24: return launch_tk_width<24>(x);
+      default: return launch_tk_width<32>(x);
     }
   }
 #define PK_LAUNCH(BF, KID)                                                                  \

@@ -2,7 +2,8 @@
 // per-kernel bandwidths, evaluated from ONE pass over the (A, B) pairs.
 //
 // Replaces the TPU kernels of src/repro/kernels/multi.py:
-//   * kernel_matvec_multi_launch (t = 1) and
+//   * kernel_matvec_multi_launch (t = 1),
+//     kernel_matvec_multi_heads_launch (2 <= t <= 16, static weights) and
 //     kernel_matvec_multi_cols_launch (t > 1) <- kernel_matvec_multi_pallas
 //     out = (sum_i w_i K_i(A, B)) @ V, w (q,) or per column (q, t);
 //   * kernel_matvec_components_launch  <- kernel_matvec_components_pallas
@@ -37,6 +38,28 @@
 // three products, and four special-function operations (three ex2, one
 // sqrt.approx), whose 16 results a clock an SM set a floor of ~48 ms at
 // 5e10 pairs.
+//
+// The weighted heads (kernel_matvec_multi_heads_kernel: 2 <= t <= 16 columns
+// with static (q,) weights, a multi-kernel one-vs-all's G_B, residual pass
+// and prediction, a multi-kernel model served with heads) run on the same
+// sweep at W value columns, as kernel_matvec's multi-column sweep does (W =
+// t1::width_of(t): 2, 4, 8, 12 or 16; B packed with its norms and V's
+// columns, split over n up to 4096 rows by split_of, so a row's result is
+// bitwise the same in every bucket; (S, m, t) partials added in split order
+// by reduce_splits).  Per group a thread forms the family sums once, then
+// per kernel its map: in f32 it adds w_k K_k into one weighted value a pair,
+// then spends W FMAs on it; in bf16 each K_k and each V_c w_k is rounded to
+// bf16 before their product (the TPU kernel's operands), so q x W FMAs a
+// pair.  Bound: operations, the t = 1 weighted sweep's plus 2 W a pair.  It
+// replaced, for these calls, the column path below, whose 32-row blocks do
+// not split n and whose 128- or 160-column blocks left 14 of 16 column
+// groups idle at t = 10.  Measured in one run (tools/time_torch_kernels.py,
+// parent and change in turn; H100 80GB HBM3 at 700 W; the refit's rbf +
+// laplacian + matern52, d = 9, f32) at the G_B, 50,000 x 10^6: 118.6, 142.4
+// and 180.9 ms at t = 2, 10 and 16 (W = 16 runs one block an SM: ptxas
+// spills at 128 registers), against 1,345-1,437 on the column path; a
+// 10-head bucket of 64 queries 0.385 ms against 360.  Built one part a
+// width (PK_PARTS below).
 //
 // The column path (kernel_matvec_cols_kernel: the weighted matvec at t > 1,
 // the tune's matvec_cols, 160 columns; and the stacked matvec,
@@ -102,6 +125,18 @@
 // row's S range sums in range order, S set by n alone), the column path
 // and the block need no reduction across threads (a thread owns whole sums
 // and whole output values), and group launches are ordered on the stream.
+//
+// Built in PK_PARTS parts that compile in parallel and link into one
+// library (kernels/_build.py reads the count from the #define below):
+// -DPK_PART=0 is everything but the weighted heads and holds the C entry
+// points, -DPK_PART=i > 0 the weighted heads at width t1::WIDTHS[i - 1].
+#define PK_PARTS 6
+#ifndef PK_PART
+#error "kernel_multi.cu is built in parts: -DPK_PART=0 .. PK_PARTS - 1 (kernels/_build.py)"
+#endif
+#if PK_PART > 0
+#define PK_SWEEP_NO_EXPORTS  // part 0 exports sweep_t1.cuh's sizes
+#endif
 #include <algorithm>
 
 #include "kernel_common.cuh"
@@ -109,6 +144,13 @@
 #include "sweep_t1.cuh"
 
 using namespace pk;
+
+// The weighted heads' widest t: the widths of t1::WIDTHS up to it are built.
+constexpr int HEADS_MAX = 16;
+constexpr int HEADS_WIDTHS = 5;
+static_assert(t1::WIDTHS[HEADS_WIDTHS - 1] == HEADS_MAX, "HEADS_WIDTHS widths reach HEADS_MAX");
+static_assert(PK_PARTS == 1 + HEADS_WIDTHS, "kernel_multi.cu is built in 1 + HEADS_WIDTHS parts");
+static_assert(PK_PART >= 0 && PK_PART < PK_PARTS, "PK_PART is out of range");
 
 constexpr int QMAX = 8;  // kernels per launch (weighted matvec, block)
 constexpr int QC = 4;    // kernels per launch of the stacked matvec (grid.z = q)
@@ -172,25 +214,32 @@ __device__ __forceinline__ void tile_map(int kid, float (&kv)[R][J], const float
   }
 }
 
+// K_KID of one pair from its family sums (acc: sum a.b, acc1: sum |a - b|)
+// and the squared norms.  PRE: acc holds the clamped l2 distance already (no
+// dot / cos kernel in the launch).
+template <int KID, bool PRE>
+__device__ __forceinline__ float pair_kernel(float acc, float acc1, float a2, float b2,
+                                             const MapConst& mc) {
+  constexpr int FAM = family_of(KID);
+  const float base = FAM == F_L2 ? (PRE ? acc : fmaxf(fmaf(-2.0f, acc, a2 + b2), 0.0f))
+                   : FAM == F_L1 ? acc1
+                                 : base_value<FAM>(acc, a2, b2);
+  return t1::kernel_map_t1<KID>(base, mc);
+}
+
 // One kernel's share of a group of the t = 1 sweep: o[r] += K_KID(a_r, b_j)
 // * vw[j] over the thread's R x J pairs, vw = v * w_k (bf16: each K value
-// and each vw rounded to bf16, the TPU kernel's operands).  PRE: acc holds
-// the clamped l2 distance already (no dot / cos kernel in the launch).
+// and each vw rounded to bf16, the TPU kernel's operands).
 template <int KID, bool PRE, bool BF16>
 __device__ __forceinline__ void weighted_group(float (&o)[t1::R], const float (&acc)[t1::R][t1::J],
                                                const float (&acc1)[t1::R][t1::J],
                                                const float (&a2)[t1::R], const float (&b2)[t1::J],
                                                const float (&vw)[t1::J], const MapConst& mc) {
-  constexpr int FAM = family_of(KID);
 #pragma unroll
   for (int j = 0; j < t1::J; ++j)
 #pragma unroll
     for (int r = 0; r < t1::R; ++r) {
-      const float base = FAM == F_L2 ? (PRE ? acc[r][j]
-                                            : fmaxf(fmaf(-2.0f, acc[r][j], a2[r] + b2[j]), 0.0f))
-                       : FAM == F_L1 ? acc1[r][j]
-                                     : base_value<FAM>(acc[r][j], a2[r], b2[j]);
-      float kv = t1::kernel_map_t1<KID>(base, mc);
+      float kv = pair_kernel<KID, PRE>(acc[r][j], acc1[r][j], a2[r], b2[j], mc);
       if (BF16) kv = round_bf16(kv);
       o[r] = fmaf(kv, vw[j], o[r]);
     }
@@ -260,6 +309,128 @@ kernel_matvec_multi_kernel(const T* __restrict__ a, const float* __restrict__ bp
         }
       });
   t1::write_rows(o, t1_smem + t1::ring_floats(NF, SLAB), out, m, accumulate);
+}
+
+// One kernel's share of a group of the weighted heads over the thread's R x
+// J pairs: f32, kt += w K_KID (the pair's weighted value, formed once for
+// all W columns); bf16, kt = K_KID rounded to bf16 (its product is taken
+// per kernel, with each V_c w rounded to bf16).
+template <int KID, bool PRE, bool BF16>
+__device__ __forceinline__ void heads_tile(float (&kt)[t1::R][t1::J],
+                                           const float (&acc)[t1::R][t1::J],
+                                           const float (&acc1)[t1::R][t1::J],
+                                           const float (&a2)[t1::R], const float (&b2)[t1::J],
+                                           float w, const MapConst& mc) {
+#pragma unroll
+  for (int r = 0; r < t1::R; ++r)
+#pragma unroll
+    for (int j = 0; j < t1::J; ++j) {
+      const float kv = pair_kernel<KID, PRE>(acc[r][j], acc1[r][j], a2[r], b2[j], mc);
+      kt[r][j] = BF16 ? round_bf16(kv) : fmaf(w, kv, kt[r][j]);
+    }
+}
+
+// heads_tile for a runtime kernel id (uniform across the block); the l2
+// kernels read the folded distance when l2_pre.
+template <bool BF16>
+__device__ __forceinline__ void heads_tile_of(int kid, bool l2_pre, float (&kt)[t1::R][t1::J],
+                                              const float (&acc)[t1::R][t1::J],
+                                              const float (&acc1)[t1::R][t1::J],
+                                              const float (&a2)[t1::R],
+                                              const float (&b2)[t1::J], float w,
+                                              const MapConst& mc) {
+#define PK_TILE(KID, PRE) heads_tile<KID, PRE, BF16>(kt, acc, acc1, a2, b2, w, mc)
+  switch (kid) {
+    case K_RBF:
+      if (l2_pre) PK_TILE(K_RBF, true);
+      else PK_TILE(K_RBF, false);
+      break;
+    case K_LAPLACIAN: PK_TILE(K_LAPLACIAN, false); break;
+    case K_MATERN52:
+      if (l2_pre) PK_TILE(K_MATERN52, true);
+      else PK_TILE(K_MATERN52, false);
+      break;
+    case K_LINEAR: PK_TILE(K_LINEAR, false); break;
+    case K_POLYNOMIAL: PK_TILE(K_POLYNOMIAL, false); break;
+    case K_SIGMOID: PK_TILE(K_SIGMOID, false); break;
+    default: PK_TILE(K_COSINE, false); break;
+  }
+#undef PK_TILE
+}
+
+// Blocks an SM must hold for the weighted heads at width W: two (128
+// registers for the 2 x W row sums, the two family sums and a group's
+// weighted values) up to W = 4, and up to W = 12 with A's 9 feature slots
+// in registers; else one (255 registers at most), where ptxas spills at 128.
+__host__ __device__ constexpr int heads_min_blocks(int nf, bool slab, int w) {
+  return w <= 4 || (w <= 12 && nf == 9 && !slab) ? 2 : 1;
+}
+
+// out (m, t) (+)= (sum_i w_i K_i(A, B)) @ V, 2 <= t <= W, static weights
+// (the table's), on the sweep over the packed B (bp: P floats a row ending
+// in the W values, n_pad rows), block (x, y) over rows [y span, +span) of
+// it (split: `out` is the (S, m, t) partials).  Per group: the family sums
+// once (l2_pre: the clamped l2 distance formed once for all l2 kernels),
+// then per kernel its id, map constants and weight read into registers and
+// the switch on the id taken once for the thread's 16 pairs.
+template <typename T, bool DOTACC, bool L1ACC, int NF, bool SLAB, int W>
+__global__ void __launch_bounds__(t1::THREADS, heads_min_blocks(NF, SLAB, W))
+kernel_matvec_multi_heads_kernel(const T* __restrict__ a, const float* __restrict__ bp,
+                                 float* __restrict__ out, int64_t m, int64_t n_pad, int64_t span,
+                                 int d, int P, int t, MultiSpec spec, bool l2_pre,
+                                 bool accumulate) {
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int SP = t1::row_floats(NF, W);  // floats a staged row; its values from SP - W
+  extern __shared__ __align__(16) float t1_smem[];
+  __shared__ MultiTable tab;
+  const int q = spec.q;
+  load_table(tab, spec);
+  __syncthreads();
+
+  float o[t1::R][W] = {};
+  t1::sweep<NF, SLAB, DOTACC, L1ACC, W>(
+      a, bp, m, d, P, t1::range_begin(span), t1::range_end(span, n_pad), l2_pre, t1_smem,
+      [&](float (&acc)[t1::R][t1::J], float (&acc1)[t1::R][t1::J], const float (&a2)[t1::R],
+          const float (&b2)[t1::J], const float* grp) {
+        if (DOTACC && l2_pre)
+#pragma unroll
+          for (int r = 0; r < t1::R; ++r)
+#pragma unroll
+            for (int j = 0; j < t1::J; ++j)
+              acc[r][j] = fmaxf(fmaf(-2.0f, acc[r][j], b2[j]), 0.0f);  // folded
+        if constexpr (!BF16) {
+          float kt[t1::R][t1::J] = {};
+#pragma unroll 1
+          for (int k = 0; k < q; ++k) {
+            const MapConst mc = tab.mc[k];
+            heads_tile_of<false>(tab.kid[k], l2_pre, kt, acc, acc1, a2, b2, tab.w[k], mc);
+          }
+#pragma unroll
+          for (int j = 0; j < t1::J; ++j) {
+            float kv[t1::R];
+#pragma unroll
+            for (int r = 0; r < t1::R; ++r) kv[r] = kt[r][j];
+            t1::add_values<W>(o, kv, grp + j * SP + (SP - W), [](float x) { return x; });
+          }
+        } else {
+#pragma unroll 1
+          for (int k = 0; k < q; ++k) {
+            const MapConst mc = tab.mc[k];
+            const float wk = tab.w[k];
+            float kt[t1::R][t1::J];
+            heads_tile_of<true>(tab.kid[k], l2_pre, kt, acc, acc1, a2, b2, wk, mc);
+#pragma unroll
+            for (int j = 0; j < t1::J; ++j) {
+              float kv[t1::R];
+#pragma unroll
+              for (int r = 0; r < t1::R; ++r) kv[r] = kt[r][j];
+              t1::add_values<W>(o, kv, grp + j * SP + (SP - W),
+                                [wk](float x) { return round_bf16(x * wk); });
+            }
+          }
+        }
+      });
+  t1::write_cols<W>(o, t1_smem, out, m, t, accumulate);
 }
 
 // ---------------------------------------------------------------------------
@@ -355,14 +526,6 @@ inline int block_stride(int d) {
 }
 inline int64_t block_rows(int64_t x) { return (x + BWS - 1) / BWS * BWS; }
 
-// Floats of the scratch a weighted-block launch packs A (m rows) and, unless
-// `same`, B (n rows) into.
-extern "C" long long kernel_block_multi_scratch_floats(long long m, long long n, int d,
-                                                        int same) {
-  if (m < 0 || n < 0 || d < 1) return 0;
-  return (long long)((block_rows(m) + (same ? 0 : block_rows(n))) * block_stride(d));
-}
-
 // The NF feature slots and the norm of a packed row (P = row_floats(NF)),
 // read as float4 through the read-only path.
 template <int NF>
@@ -394,17 +557,11 @@ template <int KID, bool PRE>
 __device__ __forceinline__ void block_group(float (&ks)[BR][BC], const float (&acc)[BR][BC],
                                             const float (&acc1)[BR][BC], const float (&a2)[BR],
                                             const float (&b2)[BC], float w, const MapConst& mc) {
-  constexpr int FAM = family_of(KID);
 #pragma unroll
   for (int r = 0; r < BR; ++r)
 #pragma unroll
-    for (int c = 0; c < BC; ++c) {
-      const float base = FAM == F_L2 ? (PRE ? acc[r][c]
-                                            : fmaxf(fmaf(-2.0f, acc[r][c], a2[r] + b2[c]), 0.0f))
-                       : FAM == F_L1 ? acc1[r][c]
-                                     : base_value<FAM>(acc[r][c], a2[r], b2[c]);
-      ks[r][c] = fmaf(w, t1::kernel_map_t1<KID>(base, mc), ks[r][c]);
-    }
+    for (int c = 0; c < BC; ++c)
+      ks[r][c] = fmaf(w, pair_kernel<KID, PRE>(acc[r][c], acc1[r][c], a2[r], b2[c], mc), ks[r][c]);
 }
 
 // out (m, n) (+)= sum_k w_k K_k over `tiles` warp tiles (`strips` column
@@ -579,11 +736,88 @@ kernel_block_multi_kernel(const float* __restrict__ ap, const float* __restrict_
   }
 }
 
+// Instantiate LAUNCH(T, DOTACC, L1ACC) for the families present.
+#define PK_DISPATCH_FAMILIES(LAUNCH, T) \
+  if (dot && l1) {                      \
+    LAUNCH(T, true, true);              \
+  } else if (l1) {                      \
+    LAUNCH(T, false, true);             \
+  } else {                              \
+    LAUNCH(T, true, false);             \
+  }
+
+// The arguments of one weighted-heads launch (kernel_matvec_multi_heads_launch).
+struct HeadsArgs {
+  const void *a, *b, *v;
+  float* out;
+  int64_t m, n;
+  int d, t;
+  MultiSpec spec;
+  bool dot, l1, l2_pre, bf16, accumulate;
+  float* scratch;
+  cudaStream_t stream;
+};
+
+template <typename T, bool DA, bool LA, int W>
+static cudaError_t launch_heads(const HeadsArgs& x) {
+  cudaError_t err =
+      t1::launch_pack<W>((const T*)x.b, (const T*)x.v, x.scratch, x.n, x.d, 1.0f, x.stream, x.t);
+  if (err != cudaSuccess) return err;
+  const t1::PackShape ps = t1::pack_shape(x.n, x.d, W);
+  const t1::Split sp = t1::split_of(x.m, x.n, x.d);
+  float* part = x.scratch + t1::pack_floats(x.n, x.d, W);  // the (S, m, t) partials of a split
+  float* dst = sp.s > 1 ? part : x.out;
+#define PK_HEADS(NF, SLAB)                                                                      \
+  err = t1::launch_sweep(kernel_matvec_multi_heads_kernel<T, DA, LA, NF, SLAB, W>,              \
+                         t1::sweep_grid(x.m, sp), t1::smem_bytes(NF, SLAB, W), x.stream,        \
+                         (const T*)x.a, (const float*)x.scratch, dst, x.m, ps.rows, sp.span,    \
+                         x.d, ps.stride, x.t, x.spec, x.l2_pre, x.accumulate)
+  PK_T1_DISPATCH_NF(x.d, PK_HEADS)
+#undef PK_HEADS
+  if (err != cudaSuccess || sp.s == 1) return err;
+  return t1::launch_reduce(part, x.out, x.m * x.t, sp.s, x.accumulate, x.stream);
+}
+
+// The weighted heads at width W for every family set and both precisions;
+// each width is a part of its own (PK_PART below).
+template <int W>
+int launch_heads_width(const HeadsArgs& x) {
+  cudaError_t err = cudaSuccess;
+  const bool dot = x.dot, l1 = x.l1;
+#define PK_LAUNCH(T, DA, LA) err = launch_heads<T, DA, LA, W>(x)
+  if (x.bf16) {
+    PK_DISPATCH_FAMILIES(PK_LAUNCH, __nv_bfloat16);
+  } else {
+    PK_DISPATCH_FAMILIES(PK_LAUNCH, float);
+  }
+#undef PK_LAUNCH
+  return (int)err;
+}
+
+#if PK_PART > 0
+// A part of the library: the weighted heads at one width.
+template int launch_heads_width<t1::WIDTHS[PK_PART - 1]>(const HeadsArgs&);
+#else
+// Part 0: the widths are instantiated in the other parts.
+extern template int launch_heads_width<2>(const HeadsArgs&);
+extern template int launch_heads_width<4>(const HeadsArgs&);
+extern template int launch_heads_width<8>(const HeadsArgs&);
+extern template int launch_heads_width<12>(const HeadsArgs&);
+extern template int launch_heads_width<16>(const HeadsArgs&);
+
 // ---------------------------------------------------------------------------
 // C launchers: launch on `stream` and return cudaGetLastError() (0 = ok).
 // kids / sigmas / weights are HOST arrays of q entries; bf16 != 0 reads the
 // operands as __nv_bfloat16, else as float.  d >= 1, t >= 1.
 // ---------------------------------------------------------------------------
+
+// Floats of the scratch a weighted-block launch packs A (m rows) and, unless
+// `same`, B (n rows) into.
+extern "C" long long kernel_block_multi_scratch_floats(long long m, long long n, int d,
+                                                        int same) {
+  if (m < 0 || n < 0 || d < 1) return 0;
+  return (long long)((block_rows(m) + (same ? 0 : block_rows(n))) * block_stride(d));
+}
 
 // Fill the spec; false for a q out of range or an unknown kernel id.  The
 // families present pick the accumulators (*dot: l2 / dot / cos, *l1: l1).
@@ -605,15 +839,14 @@ static bool make_spec(MultiSpec& s, int q, int qmax, const int* kids, const floa
   return true;
 }
 
-// Instantiate LAUNCH(T, DOTACC, L1ACC) for the families present.
-#define PK_DISPATCH_FAMILIES(LAUNCH, T) \
-  if (dot && l1) {                      \
-    LAUNCH(T, true, true);              \
-  } else if (l1) {                      \
-    LAUNCH(T, false, true);             \
-  } else {                              \
-    LAUNCH(T, true, false);             \
-  }
+// Whether every kernel of the dot accumulator is an l2 kernel (no dot or
+// cos kernel): its sum then starts at -||a||^2 / 2 and the clamped l2
+// distance is formed once for all l2 kernels.
+static bool l2_only(int q, const int* kids) {
+  for (int i = 0; i < q; ++i)
+    if (family_of(kids[i]) == F_DOT || family_of(kids[i]) == F_COS) return false;
+  return true;
+}
 
 template <typename T, bool DA, bool LA>
 static cudaError_t launch_multi_t1(const T* a, const T* b, const T* v, const float* w, float* out,
@@ -651,9 +884,7 @@ extern "C" int kernel_matvec_multi_launch(const void* a, const void* b, const vo
   if (!make_spec(spec, q, QMAX, kids, sigmas, weights, &dot, &l1) || (!w && !weights))
     return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
-  bool l2_pre = true;  // every kernel of the dot accumulator is an l2 kernel
-  for (int i = 0; i < q; ++i)
-    if (family_of(kids[i]) == F_DOT || family_of(kids[i]) == F_COS) l2_pre = false;
+  const bool l2_pre = l2_only(q, kids);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaSuccess;
 #define PK_LAUNCH(T, DA, LA)                                                                \
@@ -666,6 +897,47 @@ extern "C" int kernel_matvec_multi_launch(const void* a, const void* b, const vo
   }
 #undef PK_LAUNCH
   return (int)err;
+}
+
+// The weighted heads' widest t (wider V and per-column weights take the
+// column path).
+extern "C" int kernel_matvec_multi_heads_t_max() { return HEADS_MAX; }
+
+// Floats of the scratch a weighted-heads launch of m rows and t columns
+// needs for B of n rows and d features: the packed B with its W =
+// t1::width_of(t) values a row, then the (S, m, t) partials of a launch
+// split over n.  0 outside 2 <= t <= HEADS_MAX.
+extern "C" long long kernel_matvec_multi_heads_scratch_floats(long long m, long long n, int d,
+                                                               int t) {
+  if (m < 0 || n < 0 || d < 1 || t < 2 || t > HEADS_MAX) return 0;
+  return (long long)t1::scratch_floats(m, n, d, t1::width_of(t), t);
+}
+
+// 2 <= t <= HEADS_MAX with the host (q,) `weights`: the weighted heads.
+// accumulate != 0 adds to `out` (m, t).  `scratch`:
+// kernel_matvec_multi_heads_scratch_floats(m, n, d, t) floats of device
+// memory (B packed with its norms and V, then the partials of a split).
+extern "C" int kernel_matvec_multi_heads_launch(const void* a, const void* b, const void* v,
+                                                void* out, long long m, long long n, int d, int t,
+                                                int q, const int* kids, const float* sigmas,
+                                                const float* weights, int bf16, int accumulate,
+                                                void* scratch, void* stream) {
+  if (m < 0 || n < 0 || d < 1 || t < 2 || t > HEADS_MAX || !weights)
+    return (int)cudaErrorInvalidValue;
+  MultiSpec spec;
+  bool dot, l1;
+  if (!make_spec(spec, q, QMAX, kids, sigmas, weights, &dot, &l1))
+    return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  const HeadsArgs x{a, b, v, (float*)out, m, n, d, t, spec, dot, l1, l2_only(q, kids),
+                    bf16 != 0, accumulate != 0, (float*)scratch, (cudaStream_t)stream};
+  switch (t1::width_of(t)) {
+    case 2: return launch_heads_width<2>(x);
+    case 4: return launch_heads_width<4>(x);
+    case 8: return launch_heads_width<8>(x);
+    case 12: return launch_heads_width<12>(x);
+    default: return launch_heads_width<16>(x);
+  }
 }
 
 // The column path, t > 1: a, b, v f32 (bf16 != 0: holding bf16-rounded
@@ -811,9 +1083,7 @@ extern "C" int kernel_block_multi_launch(const void* a, const void* b, void* out
     return (int)cudaErrorInvalidValue;
   if (m == 0 || n == 0) return 0;
   if (!scratch) return (int)cudaErrorInvalidValue;
-  bool pre = true;  // every kernel of the dot accumulator is an l2 kernel
-  for (int i = 0; i < q; ++i)
-    if (family_of(kids[i]) == F_DOT || family_of(kids[i]) == F_COS) pre = false;
+  const bool pre = l2_only(q, kids);
   const bool same = a == b && m == n;
   const int P = block_stride(d);
   float* ap = (float*)scratch;
@@ -849,3 +1119,4 @@ extern "C" int kernel_block_multi_launch(const void* a, const void* b, void* out
 #undef PK_NF
   return (int)err;
 }
+#endif

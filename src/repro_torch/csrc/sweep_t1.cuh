@@ -1,8 +1,9 @@
 // The t = 1 sweep shared by kernel_matvec (out = K(A, B) v, kernel_matvec.cu)
 // and the weighted matvec (out = (sum_i w_i K_i(A, B)) v, kernel_multi.cu):
 // one column of V, every row of B, a block's 64 rows of A.  With a width W
-// of 2 to 16 value columns it is also kernel_matvec's multi-column sweep
-// (2 <= t <= 16; see "W columns" below).
+// of 2 to 32 value columns it is also the multi-column sweep: kernel_matvec's
+// at 2 <= t <= 32 and the weighted matvec's heads at 2 <= t <= 16 (see "W
+// columns" below).
 //
 // What bounds it on the H100: issued instructions per pair, not bytes.  At
 // the solve's G_B (50,000 x 10^6 pairs, d = 9) B is 36 MB and the work
@@ -65,7 +66,9 @@
 // value once.  The thread's 2 x W row sums are added over the 8 warps in
 // warp order (write_cols), through the ring's memory; a split writes (S,
 // m, t) partials and reduce_splits adds them per value in split order.  S
-// is split_of's, whatever W and t.
+// is split_of's, whatever W and t.  The widths are WIDTHS (a launch of t
+// columns takes width_of(t)); each library builds the ones its callers
+// reach, one build part a width.
 #pragma once
 
 #include <algorithm>
@@ -88,6 +91,16 @@ constexpr int TN_SLAB = 64;   // B rows a staged slab unit (d > DCAP)
 constexpr int64_t SPLIT_M = 4096;  // rows of A up to which n is split
 constexpr int SPLIT_MAX = 264;     // ranges at most: two blocks on each of 132 SMs at m <= 64
 constexpr int SPLIT_MIN_TILES = 4; // staged tiles a range at least
+
+// The widths W the multi-column sweep is built at; a launch of t columns
+// takes the smallest W >= t (the pack zero-fills V's columns t .. W - 1).
+constexpr int WIDTHS[] = {2, 4, 8, 12, 16, 20, 24, 32};
+constexpr int N_WIDTHS = sizeof(WIDTHS) / sizeof(WIDTHS[0]);
+constexpr int width_of(int t) {  // host side: the launchers
+  for (const int w : WIDTHS)
+    if (t <= w) return w;
+  return WIDTHS[N_WIDTHS - 1];
+}
 
 // Feature slots a launch keeps in registers (d <= DCAP): 9, the taxi data's
 // d, or 16; the slots past d are zero.
@@ -383,15 +396,48 @@ __device__ __forceinline__ void write_rows(const float (&o)[R], float* red, floa
   }
 }
 
-// At W > 1: out (m, t) = the sum of the 8 warps' row sums o (R x W a
+// o[r][c] += kv[r] f(V_c) over the thread's R rows and the W values of a
+// staged B row at vr: W / 4 broadcast float4 loads (a float2 at W = 2),
+// each value shared by the lane's R rows.  f maps a loaded value (the
+// weighted heads' bf16 route rounds V_c w_k to bf16 there).
+template <int W, typename F>
+__device__ __forceinline__ void add_values(float (&o)[R][W], const float (&kv)[R],
+                                           const float* vr, F&& f) {
+  if constexpr (W == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(vr);
+    const float y0 = f(x.x), y1 = f(x.y);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      o[r][0] = fmaf(kv[r], y0, o[r][0]);
+      o[r][1] = fmaf(kv[r], y1, o[r][1]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(vr + c);
+      const float y[4] = {f(x.x), f(x.y), f(x.z), f(x.w)};
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[r][c + i] = fmaf(kv[r], y[i], o[r][c + i]);
+    }
+  }
+}
+
+// At W > 1: out (m, t) (+)= the sum of the 8 warps' row sums o (R x W a
 // thread) of the block's rows, added in warp order, columns past t dropped;
 // `red` (WARPS x TM x W floats) is the ring's memory, free once every warp
 // is past its last tile.  A launch split over n writes block row
-// blockIdx.y of the (S, m, t) partials at `out`.
+// blockIdx.y of the (S, m, t) partials at `out` instead, never
+// accumulating there.
 template <int W>
 __device__ __forceinline__ void write_cols(const float (&o)[R][W], float* red,
-                                           float* __restrict__ out, int64_t m, int t) {
-  if (gridDim.y > 1) out += (int64_t)blockIdx.y * m * t;
+                                           float* __restrict__ out, int64_t m, int t,
+                                           bool accumulate) {
+  if (gridDim.y > 1) {
+    out += (int64_t)blockIdx.y * m * t;
+    accumulate = false;
+  }
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   __syncthreads();  // the ring is free
   // red[warp][c][row]: a warp's lanes write consecutive rows (no bank conflict)
@@ -406,7 +452,7 @@ __device__ __forceinline__ void write_cols(const float (&o)[R][W], float* red,
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) s += red[w * TM * W + e];
     const int64_t g = (int64_t)blockIdx.x * TM + row;
-    if (g < m && c < t) out[g * t + c] = s;
+    if (g < m && c < t) out[g * t + c] = accumulate ? out[g * t + c] + s : s;
   }
 }
 
@@ -457,13 +503,17 @@ extern "C" int sweep_t1_splits(long long m, long long n, int d) {
 namespace pk {
 namespace t1 {
 
+// Static shared memory a sweep kernel may hold beside its dynamic memory
+// (the weighted kernels' 224-byte table).
+constexpr size_t STATIC_SMEM_MAX = 1024;
+
 // Launch a sweep kernel over `grid` ((m row blocks, S ranges)) with `smem`
-// bytes of dynamic shared memory, opting in first above the 48 KB a block
-// gets by default.
+// bytes of dynamic shared memory, opting in first where it and the
+// kernel's static shared memory may pass the 48 KB a block gets by default.
 template <typename Kernel, typename... Args>
 inline cudaError_t launch_sweep(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
                                 Args... args) {
-  if (smem > 48 * 1024) {
+  if (smem + STATIC_SMEM_MAX > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

@@ -5,9 +5,9 @@ kernel_matvec_pallas``.  The kernel is bound by operations (O(m n d) f32
 FMAs plus one kernel-map evaluation per pair, and t FMAs a pair for t
 columns); its source note says how the design keeps every pair in registers
 and shared memory.  The route is chosen by t alone: t = 1 runs on the t = 1
-sweep (``csrc/sweep_t1.cuh``), 2 <= t <= 16 on the same sweep with V's
-columns packed beside B (a compile-time width of 2, 4, 8, 12 or 16), t > 16
-on the column path (``csrc/sweep_cols.cuh``).  Up to 4096 rows of A (a
+sweep (``csrc/sweep_t1.cuh``), 2 <= t <= 32 on the same sweep with V's
+columns packed beside B (a compile-time width of 2, 4, 8, 12, 16, 20, 24
+or 32), t > 32 on the column path (``csrc/sweep_cols.cuh``).  Up to 4096 rows of A (a
 serving bucket) both sweeps split B over grid.y, so a few rows still fill
 the card; the split is set by n alone, so a row's result is bitwise the
 same whatever rows travel with it.  Its plain version is
@@ -70,7 +70,8 @@ def t1_scratch(lib: ctypes.CDLL, m: int, n: int, d: int, device) -> torch.Tensor
 def _scratch(m: int, n: int, d: int, t: int, device) -> torch.Tensor | None:
     """The f32 scratch of a launch at t columns: B packed with its norms and
     V, then, where the launch splits n (m <= 4096), the (S, m, t) partials
-    (``kernel_matvec_scratch_floats``); None on the column path (t > 16)."""
+    (``kernel_matvec_scratch_floats``); None on the column path (t >
+    ``sweep_t_max()``)."""
     size = _build.load("kernel_matvec").kernel_matvec_scratch_floats
     size.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     size.restype = ctypes.c_longlong
@@ -115,15 +116,15 @@ def kernel_matvec_cuda(
 
     a: (m, d), b: (n, d), v: (n,) | (n, t), CUDA, f32 or bf16 -> f32 (m,) | (m, t).
     The operands are cast to the policy's type (bf16 for ``"bf16"``, f32
-    otherwise) and made contiguous before the launch.  Up to 16 columns the
-    launch runs a sweep: B packed with its norms and V's t columns into a
-    scratch buffer first (zero columns up to the sweep's width, 2 to 16),
-    then, up to 4096 rows of A, B split into ranges over grid.y, each
-    value's range sums added in a fixed order by a third kernel.  t > 16
-    reads f32 operands (bf16 values widen exactly) with V padded by zero
-    columns to a multiple of 4, so its rows are copied in 16-byte units, on
-    the column path, which forms each pair's kernel value once for up to
-    160 columns.
+    otherwise) and made contiguous before the launch.  Up to 32 columns
+    (``sweep_t_max()``) the launch runs a sweep: B packed with its norms and
+    V's t columns into a scratch buffer first (zero columns up to the
+    sweep's width, 2 to 32), then, up to 4096 rows of A, B split into
+    ranges over grid.y, each value's range sums added in a fixed order by a
+    third kernel.  Wider V reads f32 operands (bf16 values widen exactly)
+    with V padded by zero columns to a multiple of 4, so its rows are copied
+    in 16-byte units, on the column path, which forms each pair's kernel
+    value once for up to 160 columns.
     """
     check_operands(a, b, v)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1] or a.shape[1] < 1:

@@ -9,6 +9,11 @@ built from the sources and loaded at the first call, never at import.  Their
 plain versions are ``repro_torch.kernels.ref.kernel_matvec_multi``,
 ``kernel_matvec_components`` and ``kernel_block_multi``.
 
+The weighted matvec has three routes, chosen by :func:`matvec_multi_route`
+from t and the kind of weights: the weighted t = 1 sweep, the weighted heads
+(the same sweep at W value columns, 2 <= t <= 16 with static weights) and
+the column path (per-column weights, or wider V).
+
 A launch takes at most :data:`QMAX` kernels (:data:`QMAX_COMPONENTS` for the
 stacked matvec).  A larger q is split into groups, launched in order on the
 current stream: the group outputs are summed (matvec, block) or concatenated
@@ -32,6 +37,9 @@ QMAX_COMPONENTS = 4
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "kernel_matvec_multi_launch": [_P] * 5 + [_LL, _LL, _I, _I, _I] + [_P] * 3 + [_I, _I, _P, _P],
+    "kernel_matvec_multi_heads_launch": [_P] * 4 + [_LL, _LL, _I, _I, _I] + [_P] * 3 + [_I, _I, _P, _P],
+    "kernel_matvec_multi_heads_scratch_floats": [_LL, _LL, _I, _I],
+    "kernel_matvec_multi_heads_t_max": [],
     "kernel_matvec_multi_cols_launch": [_P] * 5 + [_LL, _LL, _I, _I, _I] + [_P] * 3 + [_I, _I, _P],
     "kernel_matvec_components_launch": [_P] * 4 + [_LL, _LL, _I, _I, _I] + [_P] * 2 + [_I, _P],
     "kernel_block_multi_launch": [_P] * 3 + [_LL, _LL, _I, _I] + [_P] * 3 + [_I, _I, _P, _P],
@@ -44,6 +52,29 @@ def _fn(name: str, restype=ctypes.c_int):
     fn.argtypes = _SIGNATURES[name]
     fn.restype = restype
     return fn
+
+
+#: the C launcher of each weighted-matvec route
+_MATVEC_LAUNCH = {"t1": "kernel_matvec_multi_launch", "heads": "kernel_matvec_multi_heads_launch",
+                  "cols": "kernel_matvec_multi_cols_launch"}
+
+
+def heads_t_max() -> int:
+    """The widest t the weighted heads take (the library's
+    ``kernel_matvec_multi_heads_t_max``)."""
+    return _fn("kernel_matvec_multi_heads_t_max")()
+
+
+def matvec_multi_route(t: int, per_column: bool, heads_max: int) -> str:
+    """The route of a weighted matvec of t columns: ``"t1"`` at t = 1 (the
+    weighted t = 1 sweep, with (q,) weights or a device (q, 1) column);
+    ``"heads"`` at 2 <= t <= ``heads_max`` with static (q,) weights (the
+    same sweep at W value columns, split over n up to 4096 rows);
+    ``"cols"`` for per-column (q, t) weights or a wider t (the column
+    path, 160 columns a block)."""
+    if t == 1:
+        return "t1"
+    return "cols" if per_column or t > heads_max else "heads"
 
 
 def _host_table(kernels, sigmas, weights=None):
@@ -100,10 +131,15 @@ def kernel_matvec_multi_cuda(
     (m, t).  ``weights`` is a sequence of q floats (one weight per kernel,
     passed to the kernel by value) or a CUDA f32 tensor (q, t) (per-column
     weights, read by the kernel).  The operands are cast to the policy's
-    type; the weights stay f32.  t = 1 launches the t = 1 sweep it shares
-    with ``kernel_matvec`` (B packed with its norms and v into a scratch
-    buffer first); t > 1 the column path, which forms each pair's kernel
-    values once for up to 160 columns.
+    type; the weights stay f32.  The route is :func:`matvec_multi_route`'s:
+    t = 1 launches the t = 1 sweep it shares with ``kernel_matvec`` and 2
+    <= t <= 16 with (q,) weights the same sweep at W value columns (B
+    packed with its norms and V into a scratch buffer first; up to 4096
+    rows of A, B split over grid.y and each value's range sums added in a
+    fixed order, so a row's result is the same in every bucket); per-column
+    weights and t > 16 the column path (f32 operands: bf16 values widen
+    exactly), which forms each pair's kernel values once for up to 160
+    columns.
     """
     q = _check_spec(kernels, sigmas)
     check_operands(a, b, v)
@@ -121,29 +157,34 @@ def kernel_matvec_multi_cuda(
         w_host = tuple(float(x) for x in weights)
         if len(w_host) != q:
             raise ValueError(f"expected {q} weights; got {len(w_host)}")
+    route = matvec_multi_route(t, w_dev is not None, heads_t_max())
     dt = torch.bfloat16 if precision == "bf16" else torch.float32
     a, b, v = (x.to(dt).contiguous() for x in (a, b, v))
-    if t > 1:  # the column path reads f32 operands: bf16 values widen exactly
+    if route == "cols":  # the column path reads f32 operands: bf16 values widen exactly
         a, b, v = (x.float() for x in (a, b, v))
     m, d = a.shape
     n = b.shape[0]
     out = torch.empty((m,) if v.ndim == 1 else (m, t), dtype=torch.float32, device=a.device)
     if m == 0:  # nothing to launch
         return out
-    fn = _fn("kernel_matvec_multi_cols_launch" if t > 1 else "kernel_matvec_multi_launch")
-    # t = 1 packs B with its norms and v into a scratch buffer first
+    fn = _fn(_MATVEC_LAUNCH[route])
+    # the sweeps pack B with its norms and V into a scratch buffer first
     extra = ()
-    if t == 1:
+    if route == "t1":
         scratch = t1_scratch(_build.load("kernel_multi"), m, n, d, a.device)
         extra = (scratch.data_ptr() if scratch.numel() else None,)
+    elif route == "heads":
+        size = _fn("kernel_matvec_multi_heads_scratch_floats", _LL)(m, n, d, t)
+        scratch = torch.empty((size,), dtype=torch.float32, device=a.device)
+        extra = (scratch.data_ptr() if size else None,)
     with torch.cuda.device(a.device):  # the launch goes to the runtime's current device
         stream = torch.cuda.current_stream(a.device).cuda_stream
         for g0 in range(0, q, QMAX):
             g = slice(g0, g0 + QMAX)
             ids, sig, w_static = _host_table(kernels[g], sigmas[g], None if w_host is None else w_host[g])
+            w_ptr = () if route == "heads" else (None if w_dev is None else w_dev[g].data_ptr(),)
             err = fn(
-                a.data_ptr(), b.data_ptr(), v.data_ptr(),
-                None if w_dev is None else w_dev[g].data_ptr(), out.data_ptr(),
+                a.data_ptr(), b.data_ptr(), v.data_ptr(), *w_ptr, out.data_ptr(),
                 m, n, d, t, len(ids), ids, sig, w_static, int(dt == torch.bfloat16),
                 int(g0 > 0), *extra, stream,
             )

@@ -29,15 +29,20 @@ rbf + matern52, rbf + laplacian, all three in f32 and bf16): the
 differences between rows price a family's sum (laplacian's |a - b|
 against rbf's a.b) and a map (matern52 over rbf).  ``kernel_matvec_cols``
 times ``kernel_matvec`` at t > 1 on the solve's G_B operands (50,000 x
-10^6) with t = 2, 4, 8, 10 and 16 (a one-vs-all G_B: the multi-column
-sweep), 20 (the single-kernel tune's 4 lams x 5 folds) and 100
-(pcg-nystrom's sketch width; both the column path), each beside its bound
+10^6) with t = 2, 4, 8, 10, 16, 17, 20, 24, 25 and 32 (a one-vs-all G_B: the
+multi-column sweep at each width and one past the width below) and 100
+(pcg-nystrom's sketch width: the column path), each beside its bound
 (``chip_smoke._bound``); ``--quick`` keeps these rows and ``--matvec-t``
-sets the widths.
+sets the widths.  ``tune_cg_ms`` times it at the single-kernel tune's CG
+apply (the 20,000 tune rows, 4 lams x 5 folds = 20 columns).
+``multi_heads`` times the weighted matvec with the refit's (q,) weights
+at a multi-kernel one-vs-all G_B (50,000 x 10^6) with t = 2, 10 and 16
+heads (the weighted heads), each beside its bound.
 ``serve_ms`` times the serving buckets against the 10^6 rows (the sweeps
 split n over the grid up to 4096 rows): ``kernel_matvec`` at 8, 64 and
-1024 queries, the weighted matvec at 64 and ``kernel_matvec`` at t = 10
-for 8, 64 and 1024.
+1024 queries, the weighted matvec at 64, ``kernel_matvec`` at t = 10
+for 8, 64 and 1024 and the weighted matvec at t = 10 (the refit's
+weights) for 8, 64 and 1024.
 ``--digests`` adds the sha256 of the output
 of each multi-kernel call timed, of ``kernel_matvec`` at G_B, the
 prediction and the residual pass (10^6 x 10^6), at each ``--matvec-t``
@@ -63,6 +68,11 @@ bf16 are bitwise their own transposes.  ``--crossover`` times each forced
 route of ``kernel_block`` at few columns and few rows (the skinny routes
 against the tile route at 10^6 rows), from which the library's limit
 ``kernel_block.skinny_max()`` is set.
+``--tune-only`` times only the single-kernel tune of ``chip_smoke.py``'s
+phase estimators end to end (``tune_s``: the first 20,000 taxi rows, rbf,
+sigmas 0.5 / 1 / 2, each one stacked CG over 4 lams x 5 folds = 20
+columns, 200 iterations at most; host clock after a synchronise, median
+of ``--reps`` after one warm-up run), with its sweeps and best config.
 Prints one JSON line.  Whichever ``repro_torch`` is first on ``PYTHONPATH``
 is timed, so two versions are compared by alternating runs within one
 session (A, B, B, A).  Needs a CUDA card.
@@ -97,10 +107,14 @@ from repro_torch.kernels.multi import (  # noqa: E402
 #: chip_smoke.py, rounded
 REFIT_WEIGHTS = (0.665, 0.021, 0.314)
 
-#: kernel_matvec's widths at t > 1: one-vs-all G_Bs of 2 to 16 heads (the
-#: multi-column sweep at each width), the single-kernel tune's 20 columns
-#: and pcg-nystrom's rank-100 sketch (the column path)
-MATVEC_T = (2, 4, 8, 10, 16, 20, 100)
+#: kernel_matvec's widths at t > 1: one-vs-all G_Bs of 2 to 32 heads (the
+#: multi-column sweep at each width and one past the width below it; 20:
+#: the single-kernel tune's 4 lams x 5 folds) and pcg-nystrom's rank-100
+#: sketch (the column path)
+MATVEC_T = (2, 4, 8, 10, 16, 17, 20, 24, 25, 32, 100)
+#: the weighted heads' widths: multi-kernel one-vs-all G_Bs of 2, 10 and 16
+#: heads
+MULTI_HEADS_T = (2, 10, 16)
 
 
 def sha256_of(x: torch.Tensor) -> str:
@@ -124,11 +138,16 @@ def main() -> None:
                     help="only kernel_block's rows, the write floor and the weighted block (rbf)")
     ap.add_argument("--crossover", action="store_true",
                     help="time kernel_block's forced routes at few columns / rows")
+    ap.add_argument("--tune-only", action="store_true",
+                    help="only the single-kernel tune of chip_smoke's phase estimators")
     ap.add_argument("--reps", type=int, default=7,
                     help="timed launches of each call, after one warm-up (the median is kept)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_torch_kernels: needs a CUDA card")
+    if args.tune_only:
+        finish({"label": args.label, "tune_s": time_tune(args.reps)}, {}, False)
+        return
     x, xb, z = chip_smoke.main_path_inputs()
     q = xb[:chip_smoke.SMALL_M].contiguous()
 
@@ -160,6 +179,22 @@ def main() -> None:
         bound = chip_smoke._bound(xb.shape[0], x.shape[0], chip_smoke.D, t)
         mv_cols[f"t{t}"] = {"t": t, "ms": ms, "bound_ms": bound["bound_ms"]}
     report["kernel_matvec_cols"] = mv_cols
+    xt = x[:chip_smoke.N_TUNE]
+    t_cg = len(chip_smoke.TUNE_LAMS) * chip_smoke.K_FOLDS
+    v_cg = torch.randn((xt.shape[0], t_cg), generator=gen_mv, device="cuda")
+    calls["kernel_matvec tune cg"] = fn = (
+        lambda: kernel_matvec_cuda(xt, xt, v_cg, kernel="rbf", sigma=1.0, precision="f32"))
+    report["tune_cg_ms"] = {"t": t_cg, "ms": median_ms(fn), "bound_ms": chip_smoke._bound(
+        xt.shape[0], xt.shape[0], chip_smoke.D, t_cg)["bound_ms"]}
+    heads = {}
+    for t in MULTI_HEADS_T:
+        vt = torch.randn((x.shape[0], t), generator=gen_mv, device="cuda")
+        calls[f"multi heads t{t}"] = fn = (
+            lambda vt=vt: kernel_matvec_multi_cuda(xb, x, vt, w_refit, kernels=ks, sigmas=sg,
+                                                   precision="f32"))
+        bound = chip_smoke._bound_multi(xb.shape[0], x.shape[0], chip_smoke.D, t, ks, "matvec")
+        heads[f"t{t}"] = {"t": t, "ms": median_ms(fn), "bound_ms": bound["bound_ms"]}
+    report["multi_heads"] = heads
     calls["kernel_matvec G_B"] = lambda: kernel_matvec_cuda(xb, x, z, kernel="rbf", sigma=1.0,
                                                             precision="f32")
     calls["kernel_matvec prediction"] = lambda: kernel_matvec_cuda(
@@ -177,6 +212,9 @@ def main() -> None:
         q, x, z, w_refit, kernels=ks, sigmas=sg, precision="f32")
     serve.update({f"mv t10 m{m}": (lambda m=m: kernel_matvec_cuda(
         xb[:m], x, z10, kernel="rbf", sigma=1.0, precision="f32")) for m in (8, chip_smoke.SMALL_M, 1024)})
+    serve.update({f"multi t10 m{m}": (lambda m=m: kernel_matvec_multi_cuda(
+        xb[:m], x, z10, w_refit, kernels=ks, sigmas=sg, precision="f32"))
+        for m in (8, chip_smoke.SMALL_M, 1024)})
     report["serve_ms"] = {label: median_ms(fn) for label, fn in serve.items()}
     calls.update({f"serve {label}": fn for label, fn in serve.items()})
     if not args.quick:
@@ -196,7 +234,6 @@ def main() -> None:
         ms = median_ms(fn)
         bound = chip_smoke._bound_multi(rows.shape[0], x.shape[0], chip_smoke.D, 1, ks, "matvec")
         t1[label] = {"m": rows.shape[0], "ms": ms, "bound_ms": bound["bound_ms"]}
-    xt = x[:chip_smoke.N_TUNE]
     gen = torch.Generator(device="cuda").manual_seed(5)
     cols = {}
     # (label, columns, per-column weights): chip_smoke's tune, the launcher's
@@ -314,6 +351,38 @@ def block_symmetry(xb) -> dict:
              for prec in ("f32", "bf16")
              for kk in [kernel_block_cuda(a, a, kernel=kern, sigma=1.5, precision=prec)]}
     return {"kbb_rbf_f32": same, "d37": small}
+
+
+def time_tune(reps: int) -> dict:
+    """Seconds of the single-kernel tune of chip_smoke's phase estimators
+    (median of ``reps`` after one warm-up run), its sweeps and best."""
+    import statistics
+    import time
+
+    from repro_torch.core.krr import KRRProblem
+    from repro_torch.core.solver_api import tune
+
+    x, y = chip_smoke.taxi_data()
+    xs, ys = x[:chip_smoke.N_TUNE], y[:chip_smoke.N_TUNE]
+    # the phase's lams: its KernelRidgeCV alphas (n lam) over n
+    lams = tuple(chip_smoke.N_TUNE * lam / chip_smoke.N_TUNE for lam in chip_smoke.TUNE_LAMS)
+
+    def run():
+        return tune(KRRProblem(x=xs, y=ys, kernel="rbf", precision="f32"),
+                    sigmas=chip_smoke.CV_SIGMAS, lams=lams,
+                    folds=chip_smoke.K_FOLDS, policy="grid", seed=0, rank=chip_smoke.RANK,
+                    max_iters=chip_smoke.TUNE_ITERS, tol=chip_smoke.TUNE_TOL)
+
+    res = run()
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return {"seconds": statistics.median(secs), "all": secs, "sweeps": res.sweeps,
+            "best": {k: res.best[k] for k in ("sigma", "lam_unscaled", "cv_mse")}}
 
 
 #: columns (rows) at which --crossover times the skinny routes against the
